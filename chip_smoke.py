@@ -3,8 +3,9 @@
 NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
 
 1. Prints the card (name, power limit), torch and CUDA versions, and builds
-   every CUDA kernel of the port from csrc/ with nvcc.
-2. Kernel phase: at each W48 shape of the fused BasicBlock (C, H) in
+   every CUDA kernel of the port from csrc/ with nvcc (one nvcc per source,
+   all started together).
+2. Kernel phase, tiled fused BasicBlock: at each W48 shape (C, H) in
    {(48, 64), (96, 32), (192, 16), (384, 8)}, batch 32, random folded
    weights and BN stats (and, checked only, at two odd shapes), the
    kernel is held against its plain PyTorch version on the card (bf16,
@@ -12,16 +13,34 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    9C terms) and timed with CUDA events beside the
    plain version, two cuDNN convs doing the same block (``library_ms``,
    timed only, never called by the port) and the card's bound.
-3. Slice phase: ``EgoNet(demo_config(), device="cuda")`` — full W48, bf16,
+3. Kernel phase, row-streaming (stencil) fused BasicBlock: the same checks
+   at the same four shapes and at three odd ones (two from step 2 and one
+   whose width no column tile divides), timed beside its plain version,
+   the cuDNN convs, its bound, the tiled kernel and other column tiles;
+   then ``probe_wide_tile()``, whose result is printed.
+4. Slice phase: ``EgoNet(demo_config(), device="cuda")`` — full W48, bf16,
    seeded random weights, LS stats anchored at a placed cuboid — runs 4
    synthetic 375x1242 frames with 6 boxes each through dispatch_annot_dict
    -> finalize -> post_process, writing KITTI txts to a temp dir.  The
-   kernel launch count is reset just before and read just after: it must
-   grow by exactly 104 per HRNet forward.  Outputs must be finite, every
-   instance must get a txt line, and the kernel path must agree with the
-   same model's unfused eval path (median |d ry| < 0.5 deg).
-4. Prints one JSON line per kernel shape, the {"kernels": [...]} line, the
-   card line, and last {"ok": true, "device": {...}}.
+   kernel launch counts are reset just before and read just after: the
+   tiled kernel's must grow by exactly 104 per HRNet forward.  Outputs
+   must be finite, every instance must get a txt line, and the kernel
+   path must agree with the same model's unfused eval path (median |d ry|
+   < 0.5 deg).
+5. Stencil slice phase: the same model with ``prepare_inference(stencil=
+   "1")``: exactly 104 stencil launches and 0 tiled ones per forward,
+   median |d ry| < 0.5 deg against both the tiled and the unfused paths,
+   steady-state crops/s beside the tiled path's.
+6. CLI phase, stencil on (EGONET_PALLAS_STENCIL=1): writes a small KITTI
+   root (4 frames of 375x1242 as PNGs from the zlib writer below, whose
+   rows cycle through all five PNG filters; labels, calibrations, detector
+   txts, LS.npy), checks the port's PNG reader against the written pixels,
+   and runs ``egonet_tpu_torch.tools.inference.main(cfgs=...)`` on the
+   GT-box and submission paths: every instance gets a 17-field line whose
+   fields other than alpha and rot_y equal the input line's bytes, with
+   finite angles.
+7. Prints one JSON line per kernel shape and phase, the {"kernels": [...]}
+   line, the card line, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
 Any failure raises (non-zero exit).
@@ -29,15 +48,24 @@ Any failure raises (non-zero exit).
 
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 W48_SHAPES = ((48, 64), (96, 32), (192, 16), (384, 8))
 # checked only (not timed): a W32 width, whose C is no multiple of 48 (the
 # kernel's one-N-tile variant), and a map no tile divides
 EXTRA_SHAPES = ((32, 64, 4), (64, 10, 3))
+# the stencil's odd shapes (C, H, W, B): those above and a width that no
+# column tile divides
+STENCIL_EXTRA = ((32, 64, 64, 4), (64, 10, 10, 3), (48, 12, 37, 5))
+# other (TW, NB) column tiles of the stencil, timed at each W48 shape
+STENCIL_ALT_TILES = ((14, 1), (16, 1), (30, 1), (14, 2))
+# fused blocks per HRNet-W48 forward at each width (104 in all)
+PER_FORWARD = {48: 32, 96: 32, 192: 28, 384: 12}
 BATCH = 32
 PEAK_BF16 = 989e12          # H100 SXM dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bytes/s
@@ -66,9 +94,9 @@ def _time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def _block_inputs(torch, fb, g, c, h, batch):
-    """x (post-ReLU-like, NHWC bf16) and folded weights of a random block
-    with random BN statistics."""
+def _block_inputs(torch, fb, g, c, h, batch, w=None):
+    """x (post-ReLU-like, NHWC bf16, h x w, w defaulting to h) and folded
+    weights of a random block with random BN statistics."""
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, device="cuda", generator=g) * scale
     folded = []
@@ -81,14 +109,33 @@ def _block_inputs(torch, fb, g, c, h, batch):
             bn.running_mean.copy_(rnd(c, scale=0.1))
             bn.running_var.copy_(rnd(c).abs() * 0.5 + 0.75)
         folded += fb.fold_conv_bn(conv, bn)
-    x = torch.relu(rnd(batch, h, h, c)).to(torch.bfloat16)
+    x = torch.relu(rnd(batch, h, w or h, c)).to(torch.bfloat16)
     return x, folded
 
 
-def kernel_phase(torch, fb):
-    """Check the fused block at the odd shapes, check and time it at every
-    W48 shape."""
+def _library_block(torch, x, w1, b1, w2, b2):
+    """Two cuDNN bf16 convs doing the folded block (timed only)."""
     import torch.nn.functional as F
+    xc = x.permute(0, 3, 1, 2)                      # channels_last NCHW
+    wl1, wl2 = w1.permute(0, 3, 1, 2), w2.permute(0, 3, 1, 2)
+    bl1, bl2 = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+
+    def library():
+        m = torch.relu(F.conv2d(xc, wl1, bl1, padding=1))
+        return torch.relu(F.conv2d(m, wl2, bl2, padding=1) + xc)
+    return library
+
+
+def _bound(c, h, w):
+    """(operations ms, bytes ms) of one block launch at batch BATCH."""
+    ops = 4.0 * BATCH * h * w * 9 * c * c
+    nbytes = 4.0 * BATCH * h * w * c + 36.0 * c * c
+    return ops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def kernel_phase(torch, fb):
+    """Check the tiled fused block at the odd shapes, check and time it at
+    every W48 shape."""
     rows = []
     g = torch.Generator(device="cuda").manual_seed(0)
     for c, h, batch in EXTRA_SHAPES:
@@ -107,14 +154,7 @@ def kernel_phase(torch, fb):
         def plain():
             return fb.fused_basic_block_reference(x, w1, b1, w2, b2)
 
-        xc = x.permute(0, 3, 1, 2)                      # channels_last NCHW
-        wl1, wl2 = w1.permute(0, 3, 1, 2), w2.permute(0, 3, 1, 2)
-        bl1, bl2 = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
-
-        def library():
-            m = torch.relu(F.conv2d(xc, wl1, bl1, padding=1))
-            return torch.relu(F.conv2d(m, wl2, bl2, padding=1) + xc)
-
+        library = _library_block(torch, x, w1, b1, w2, b2)
         y = kernel()
         torch.cuda.synchronize()
         ref = plain()
@@ -125,19 +165,76 @@ def kernel_phase(torch, fb):
         lib_y = library().permute(0, 2, 3, 1)
         torch.testing.assert_close(lib_y.float(), ref.float(), atol=0.25,
                                    rtol=5e-2)
-        ops = 4.0 * BATCH * h * h * 9 * c * c
-        nbytes = 4.0 * BATCH * h * h * c + 36.0 * c * c
+        ops_ms, bytes_ms = _bound(c, h, h)
         row = {"shape": {"C": c, "H": h, "W": h, "B": BATCH},
                "tile": list(fb.tile_for(c)),
                "max_abs_err": err,
                "ms": _time_ms(torch, kernel),
                "plain_ms": _time_ms(torch, plain, iters=5),
                "library_ms": _time_ms(torch, library),
-               "ops_ms": ops / PEAK_BF16 * 1e3,
-               "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+               "ops_ms": ops_ms, "bytes_ms": bytes_ms}
         row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
         print(json.dumps({"fused_basic_block": row}), flush=True)
         rows.append(row)
+    return rows
+
+
+def stencil_kernel_phase(torch, fb, st):
+    """Check the stencil at the odd shapes, check and time it at every W48
+    shape beside the tiled kernel, the plain version and cuDNN; run the
+    probe."""
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for c, h, w, batch in STENCIL_EXTRA:
+        x, folded = _block_inputs(torch, fb, g, c, h, batch, w)
+        y = st.fused_basic_block_stencil(x, *folded)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            y.float(), st.fused_basic_block_reference(x, *folded).float(),
+            atol=5e-2, rtol=2e-2)
+    for c, h in W48_SHAPES:
+        x, (w1, b1, w2, b2) = _block_inputs(torch, fb, g, c, h, BATCH)
+
+        def kernel(tile=None):
+            return st.fused_basic_block_stencil(x, w1, b1, w2, b2, tile=tile)
+
+        def plain():
+            return st.fused_basic_block_reference(x, w1, b1, w2, b2)
+
+        def tiled():
+            return fb.fused_basic_block(x, w1, b1, w2, b2)
+
+        library = _library_block(torch, x, w1, b1, w2, b2)
+        ref = plain()
+        for tile in (None,) + STENCIL_ALT_TILES:
+            if tile is not None and not st.tile_fits(c, tile):
+                continue
+            y = kernel(tile)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(y.float(), ref.float(), atol=5e-2,
+                                       rtol=2e-2)
+        y = kernel()
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        assert torch.isfinite(y.float()).all()
+        ops_ms, bytes_ms = _bound(c, h, h)
+        row = {"shape": {"C": c, "H": h, "W": h, "B": BATCH},
+               "tile": list(st.DEFAULT_TILE),
+               "max_abs_err": err,
+               "ms": _time_ms(torch, kernel),
+               "plain_ms": _time_ms(torch, plain, iters=5),
+               "library_ms": _time_ms(torch, library),
+               "tiled_ms": _time_ms(torch, tiled),
+               "alt_tiles_ms": {f"{tw}x{nb}": _time_ms(
+                   torch, lambda t=(tw, nb): kernel(t), iters=10)
+                   for tw, nb in STENCIL_ALT_TILES
+                   if st.tile_fits(c, (tw, nb))},
+               "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+        row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+        print(json.dumps({"fused_basic_block_stencil": row}), flush=True)
+        rows.append(row)
+    probe = st.probe_wide_tile()
+    print(json.dumps({"probe_wide_tile": probe}), flush=True)
     return rows
 
 
@@ -179,7 +276,52 @@ def _anchored_ls_stats(np, cb):
             "std_out": np.full((1, 96), 0.05, np.float32)}
 
 
-def slice_phase(torch, np, fb):
+def _drive(torch, model, annot, fb, st, out_dir):
+    """One batch through dispatch -> finalize -> post_process, with both
+    kernels' launch counts set to 0 just before and read just after.
+    Checks that every instance got a 17-field txt line.  Returns (records,
+    {"tiled": n, "stencil": n}, seconds)."""
+    fb.fused_basic_block.launches = 0
+    st.fused_basic_block_stencil.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records = model.finalize(model.dispatch_annot_dict(annot))
+    model.post_process(records, save_dict={"flag": True, "save_dir": out_dir})
+    seconds = time.perf_counter() - t0
+    launches = {"tiled": fb.fused_basic_block.launches,
+                "stencil": st.fused_basic_block_stencil.launches}
+    n_lines = 0
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name)) as f:
+            lines = f.read().split("\n")
+        assert all(len(ln.split(" ")) == 17 for ln in lines), lines
+        n_lines += len(lines)
+    assert n_lines == sum(len(b) for b in annot["boxes"]), n_lines
+    return records, launches, seconds
+
+
+def _ry(np, records):
+    return np.concatenate([records[p]["euler_angles"][:, 1] for p in records])
+
+
+def _d_deg(np, a, b):
+    d = np.abs(a - b) % (2 * np.pi)
+    return np.degrees(np.minimum(d, 2 * np.pi - d))
+
+
+def _steady_s(torch, model, annot, iters=10):
+    """Mean seconds per batch of the whole slice after one warm batch."""
+    model.forward_annot_dict(annot)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        model.forward_annot_dict(annot)
+    return (time.perf_counter() - t0) / iters
+
+
+def slice_phase(torch, np, fb, st):
+    """The W48 slice through the tiled kernel.  Returns (result, model,
+    annot, ry of the tiled path, ry of the unfused path)."""
     from egonet_tpu_torch.config import demo_config
     from egonet_tpu_torch.data import cuboid as cb
     from egonet_tpu_torch.models.egonet import EgoNet
@@ -194,24 +336,11 @@ def slice_phase(torch, np, fb):
     n_inst = N_FRAMES * N_BOXES
 
     with tempfile.TemporaryDirectory() as out_dir:
-        fb.fused_basic_block.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        records = model.finalize(model.dispatch_annot_dict(annot))
-        model.post_process(records, save_dict={"flag": True,
-                                               "save_dir": out_dir})
-        first_s = time.perf_counter() - t0
-        launches = fb.fused_basic_block.launches
-        assert launches == 104, f"{launches} fused-block launches, not 104"
-        n_lines = 0
-        for name in sorted(os.listdir(out_dir)):
-            with open(os.path.join(out_dir, name)) as f:
-                lines = f.read().split("\n")
-            assert all(len(ln.split(" ")) == 17 for ln in lines), lines
-            n_lines += len(lines)
-        assert n_lines == n_inst, (n_lines, n_inst)
+        records, launches, first_s = _drive(torch, model, annot, fb, st,
+                                            out_dir)
+    assert launches == {"tiled": 104, "stencil": 0}, launches
 
-    ry = np.concatenate([records[p]["euler_angles"][:, 1] for p in records])
+    ry = _ry(np, records)
     for p, rec in records.items():
         for key in ("kpts_2d_pred", "kpts_3d_pred", "euler_angles",
                     "translation", "alphas"):
@@ -221,30 +350,237 @@ def slice_phase(torch, np, fb):
     # the kernel path against the same model's unfused eval path
     model.hrnet.fuse_blocks = False
     before = fb.fused_basic_block.launches
-    unfused = model.forward_annot_dict(annot)
+    ry_u = _ry(np, model.forward_annot_dict(annot))
     assert fb.fused_basic_block.launches == before
     model.hrnet.fuse_blocks = True
-    ry_u = np.concatenate([unfused[p]["euler_angles"][:, 1]
-                           for p in unfused])
-    d = np.abs(ry - ry_u) % (2 * np.pi)
-    d_ry = np.degrees(np.minimum(d, 2 * np.pi - d))
+    d_ry = _d_deg(np, ry, ry_u)
     assert np.median(d_ry) < 0.5, d_ry
 
-    # steady-state throughput of the whole slice (information only)
-    iters = 10
-    model.forward_annot_dict(annot)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        model.forward_annot_dict(annot)
-    steady_s = (time.perf_counter() - t0) / iters
-    return {"instances": n_inst, "bucket": 32, "launches": launches,
-            "launches_per_forward": launches, "setup_s": setup_s,
+    steady_s = _steady_s(torch, model, annot)
+    result = {"instances": n_inst, "bucket": 32,
+              "launches": launches["tiled"],
+              "launches_per_forward": launches["tiled"], "setup_s": setup_s,
+              "first_batch_s": first_s, "batch_s": steady_s,
+              "crops_per_s": n_inst / steady_s,
+              "median_d_ry_fused_vs_unfused_deg": float(np.median(d_ry)),
+              "max_d_ry_fused_vs_unfused_deg": float(d_ry.max()),
+              "transport": dict(model.transport_stats)}
+    return result, model, annot, ry, ry_u
+
+
+def stencil_slice_phase(torch, np, fb, st, model, annot, ry_tiled,
+                        ry_unfused):
+    """The same model and batch with the stencil kernel selected."""
+    model.hrnet.prepare_inference(stencil="1")
+    n_inst = N_FRAMES * N_BOXES
+    with tempfile.TemporaryDirectory() as out_dir:
+        records, launches, first_s = _drive(torch, model, annot, fb, st,
+                                            out_dir)
+    assert launches == {"tiled": 0, "stencil": 104}, launches
+    ry = _ry(np, records)
+    assert np.isfinite(ry).all()
+    d_tiled, d_unfused = _d_deg(np, ry, ry_tiled), _d_deg(np, ry, ry_unfused)
+    assert np.median(d_tiled) < 0.5, d_tiled
+    assert np.median(d_unfused) < 0.5, d_unfused
+    steady_s = _steady_s(torch, model, annot)
+    model.hrnet.prepare_inference(stencil="0")
+    return {"instances": n_inst, "bucket": 32,
+            "launches": launches["stencil"],
+            "launches_per_forward": launches["stencil"],
+            "tiled_launches": launches["tiled"],
             "first_batch_s": first_s, "batch_s": steady_s,
             "crops_per_s": n_inst / steady_s,
-            "median_d_ry_fused_vs_unfused_deg": float(np.median(d_ry)),
-            "max_d_ry_fused_vs_unfused_deg": float(d_ry.max()),
-            "transport": dict(model.transport_stats)}
+            "median_d_ry_vs_tiled_deg": float(np.median(d_tiled)),
+            "max_d_ry_vs_tiled_deg": float(d_tiled.max()),
+            "median_d_ry_vs_unfused_deg": float(np.median(d_unfused)),
+            "max_d_ry_vs_unfused_deg": float(d_unfused.max())}
+
+
+# ---------------------------------------------------------------------------
+# the CLI phase: a small KITTI directory written here
+# ---------------------------------------------------------------------------
+
+def _png_bytes(np, img):
+    """A PNG of an RGB uint8 image whose rows cycle through the five row
+    filters (None, Sub, Up, Average, Paeth)."""
+    h, w, _ = img.shape
+    rows = img.reshape(h, -1).astype(np.int32)
+    data, prev = bytearray(), np.zeros_like(rows[0])
+    for y in range(h):
+        kind, r = y % 5, rows[y]
+        a = np.concatenate([np.zeros(3, np.int32), r[:-3]])
+        c = np.concatenate([np.zeros(3, np.int32), prev[:-3]])
+        pa, pb, pc = np.abs(prev - c), np.abs(a - c), np.abs(a + prev - 2 * c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, prev, c))
+        pred = (0, a, prev, (a + prev) >> 1, paeth)[kind]
+        data.append(kind)
+        data += ((r - pred) & 255).astype(np.uint8).tobytes()
+        prev = r
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(bytes(data), 6))
+            + chunk(b"IEND", b""))
+
+
+def _label_line(car, score=None):
+    """A KITTI label line in the writer's own number formats."""
+    (x1, y1, x2, y2), (l, h, w), (x, y, z), ry, alpha = car
+    line = (f"Car 0.0 0.0 {alpha:.6f} {x1:.6f} {y1:.6f} {x2:.6f} {y2:.6f} "
+            f"{h:.6f} {w:.6f} {l:.6f} {x:.6f} {y:.6f} {z:.6f} {ry:.6f}")
+    return line if score is None else line + f" {score:.8f}"
+
+
+def _write_kitti(np, cb, root, pred_dir):
+    """4 frames of 375x1242 with N_BOXES cars each: PNGs, labels, calibs,
+    the valid split list and detector txts.  Returns {name: pixels}."""
+    rng = np.random.RandomState(3)
+    K = np.array([[721.5, 0.0, 609.6], [0.0, 721.5, 172.9], [0.0, 0.0, 1.0]])
+    shift = np.array([0.06, 0.0, 0.0])
+    P = np.hstack([K, (K @ shift)[:, None]])
+    train = os.path.join(root, "training")
+    for sub in ("image_2", "label_2", "calib", "ImageSets"):
+        os.makedirs(os.path.join(train, sub))
+    os.makedirs(pred_dir)
+    frames = {}
+    for i in range(N_FRAMES):
+        name = f"{i:06d}"
+        cars = []
+        for _ in range(N_BOXES):
+            dims = (rng.uniform(3.5, 4.5), rng.uniform(1.4, 1.7),
+                    rng.uniform(1.5, 1.8))
+            loc = (rng.uniform(-8, 8), 1.65, rng.uniform(10, 40))
+            ry = rng.uniform(-np.pi, np.pi)
+            corners = cb.place_cuboid(
+                cb.construct_box_3d(*dims, interpolate=False),
+                [*loc, 0.0, ry, 0.0], shift)
+            uv = cb.project_3d_to_2d(corners, K)[:2]
+            box = (max(uv[0].min(), 0.0), max(uv[1].min(), 0.0),
+                   min(uv[0].max(), 1241.0), min(uv[1].max(), 374.0))
+            cars.append((box, dims, loc, ry, rng.uniform(-np.pi, np.pi)))
+        img = rng.randint(0, 256, (375, 1242, 3), dtype=np.uint8)
+        frames[name] = img
+        with open(os.path.join(train, "image_2", name + ".png"), "wb") as f:
+            f.write(_png_bytes(np, img))
+        with open(os.path.join(train, "label_2", name + ".txt"), "w") as f:
+            f.write("\n".join(_label_line(c) for c in cars) + "\n")
+        with open(os.path.join(train, "calib", name + ".txt"), "w") as f:
+            f.write("P2: " + " ".join(f"{v:.12e}" for v in P.reshape(-1))
+                    + "\n")
+        with open(os.path.join(pred_dir, name + ".txt"), "w") as f:
+            f.write("\n".join(_label_line(c, 0.95 - 0.1 * j)
+                              for j, c in enumerate(cars)) + "\n")
+    with open(os.path.join(train, "ImageSets", "val.txt"), "w") as f:
+        f.write("\n".join(frames) + "\n")
+    return frames
+
+
+def _check_txts(np, out_dir, in_dir, names, has_score):
+    """Every input line has an output line whose fields other than alpha
+    (3) and rot_y (14) are the input's bytes; angles are finite."""
+    n = 0
+    for name in names:
+        with open(os.path.join(in_dir, name + ".txt")) as f:
+            want = [ln.split(" ") for ln in f.read().split("\n") if ln]
+        with open(os.path.join(out_dir, name + ".txt")) as f:
+            got = [ln.split(" ") for ln in f.read().split("\n")]
+        assert len(got) == len(want), (name, len(got), len(want))
+        for g, w in zip(got, want):
+            assert len(g) == 17 and g[16] == "", g
+            assert np.isfinite([float(g[3]), float(g[14])]).all(), g
+            keep = [i for i in range(len(w)) if i not in (3, 14)]
+            assert [g[i] for i in keep] == [w[i] for i in keep], (g, w)
+            if not has_score:
+                assert g[15] == "1.00000000", g
+            n += 1
+    return n
+
+
+def cli_phase(np, fb, st):
+    """The port's inference CLI over a KITTI directory, stencil on."""
+    from egonet_tpu_torch.config import demo_config
+    from egonet_tpu_torch.data import cuboid as cb
+    from egonet_tpu_torch.data import png
+    from egonet_tpu_torch.tools import inference
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, pred_dir = os.path.join(tmp, "KITTI"), os.path.join(tmp, "pred")
+        frames = _write_kitti(np, cb, root, pred_dir)
+        decode_s = []
+        for name, img in frames.items():
+            t0 = time.perf_counter()
+            got = png.decode(os.path.join(root, "training", "image_2",
+                                          name + ".png"))
+            decode_s.append(time.perf_counter() - t0)
+            assert np.array_equal(got, img), name
+        ckpt, out = os.path.join(tmp, "ckpt"), os.path.join(tmp, "out")
+        os.makedirs(ckpt)
+        np.save(os.path.join(ckpt, "LS.npy"), _anchored_ls_stats(np, cb))
+        cfgs = demo_config()
+        cfgs["dataset"]["root"] = root
+        cfgs["dirs"] = {"output": out, "ckpt": ckpt,
+                        "load_prediction_file": pred_dir}
+        cfgs["pre_trained"] = True            # loads LS.npy (no HC / L)
+
+        old = os.environ.get("EGONET_PALLAS_STENCIL")
+        os.environ["EGONET_PALLAS_STENCIL"] = "1"
+        try:
+            fb.fused_basic_block.launches = 0
+            st.fused_basic_block_stencil.launches = 0
+            t0 = time.perf_counter()
+            summary = inference.main(cfgs=cfgs)
+            cli_s = time.perf_counter() - t0
+            launches = {"tiled": fb.fused_basic_block.launches,
+                        "stencil": st.fused_basic_block_stencil.launches}
+        finally:
+            if old is None:
+                del os.environ["EGONET_PALLAS_STENCIL"]
+            else:
+                os.environ["EGONET_PALLAS_STENCIL"] = old
+        # one forward per frame and path (testing_settings.batch_size 1)
+        assert launches == {"tiled": 0, "stencil": 104 * 2 * N_FRAMES}, \
+            launches
+        n_gt = _check_txts(np, os.path.join(out, "gt_box_test", "data"),
+                           os.path.join(root, "training", "label_2"), frames,
+                           has_score=False)
+        n_sub = _check_txts(np, os.path.join(out, "submission", "data"),
+                            pred_dir, frames, has_score=True)
+        assert n_gt == n_sub == N_FRAMES * N_BOXES, (n_gt, n_sub)
+    stats = summary["image_store"]
+    evaluation = summary["evaluation"]
+    return {"frames": N_FRAMES, "instances_per_path": n_gt,
+            "launches": launches["stencil"],
+            "tiled_launches": launches["tiled"], "cli_s": cli_s,
+            "inference_s": summary["inference_s"],
+            "crops_per_s": (n_gt + n_sub) / summary["inference_s"],
+            "decoder": stats["decoder"],
+            "cli_decode_ms_per_frame": 1e3 * stats["decode_s"]
+            / max(stats["decodes"], 1),
+            "png_decode_ms_per_frame": 1e3 * float(np.mean(decode_s)),
+            "evaluated": evaluation is not None,
+            "orientation": [ln for ln in (evaluation or "").splitlines()
+                            if "orientation AP" in ln]}
+
+
+def _kernel_entry(rows, launches, **fields):
+    """One entry of the {"kernels": [...]} line: per-shape rows summed over
+    one HRNet-W48 forward at 32 crops."""
+    def total(key):
+        return sum(PER_FORWARD[r["shape"]["C"]] * r[key] for r in rows)
+
+    ops_ms, bytes_ms = total("ops_ms"), total("bytes_ms")
+    return {**fields, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": total("library_ms"),
+            "per": "one HRNet-W48 forward at 32 crops (104 launches)"}
 
 
 def main() -> int:
@@ -263,13 +599,14 @@ def main() -> int:
     from egonet_tpu_torch.device import full_precision_fp32
     from egonet_tpu_torch.ops import _build
     from egonet_tpu_torch.ops import fused_block as fb
+    from egonet_tpu_torch.ops import fused_block_stencil as st
 
     card = _card_line()
     print(f"card: {card}; torch {torch.__version__}; CUDA {torch.version.cuda}",
           flush=True)
     full_precision_fp32()
     t0 = time.perf_counter()
-    _build.build(["fused_basic_block"])
+    _build.build(["fused_basic_block", "fused_basic_block_stencil"])
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, info in _build.BUILD_INFO.items():
         print(f"[{name}] " + " ".join(
@@ -277,32 +614,29 @@ def main() -> int:
             if "registers" in ln or "spill" in ln), flush=True)
 
     rows = kernel_phase(torch, fb)
-    result = slice_phase(torch, np, fb)
+    srows = stencil_kernel_phase(torch, fb, st)
+    result, model, annot, ry, ry_u = slice_phase(torch, np, fb, st)
     print(json.dumps({"slice": result}), flush=True)
+    sresult = stencil_slice_phase(torch, np, fb, st, model, annot, ry, ry_u)
+    sresult["tiled_crops_per_s"] = result["crops_per_s"]
+    print(json.dumps({"stencil_slice": sresult}), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    cli = cli_phase(np, fb, st)
+    print(json.dumps({"cli": cli}), flush=True)
 
-    # per HRNet forward: blocks at each width (C=48: 32, 96: 32, 192: 28,
-    # 384: 12 — 104 in all), each at the bucket of 32 crops timed above
-    per_forward = {48: 32, 96: 32, 192: 28, 384: 12}
-    assert sum(per_forward.values()) == result["launches_per_forward"]
-
-    def total(key):
-        return sum(per_forward[r["shape"]["C"]] * r[key] for r in rows)
-
-    ops_ms, bytes_ms = total("ops_ms"), total("bytes_ms")
-    print(json.dumps({"kernels": [{
-        "name": "fused_basic_block",
-        "route": "cuda",
-        "source": "egonet_tpu_torch/csrc/fused_basic_block.cu",
-        "replaces": "egonet_tpu/ops/pallas_block.py:189",
-        "launches": result["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": total("ms"),
-        "plain_ms": total("plain_ms"),
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": total("library_ms"),
-        "per": "one HRNet-W48 forward at 32 crops (104 launches)",
-    }]}), flush=True)
+    assert sum(PER_FORWARD.values()) == result["launches_per_forward"]
+    print(json.dumps({"kernels": [
+        _kernel_entry(rows, result["launches"], name="fused_basic_block",
+                      route="cuda",
+                      source="egonet_tpu_torch/csrc/fused_basic_block.cu",
+                      replaces="egonet_tpu/ops/pallas_block.py:189"),
+        _kernel_entry(srows, sresult["launches"],
+                      name="fused_basic_block_stencil", route="cuda",
+                      source="egonet_tpu_torch/csrc/"
+                             "fused_basic_block_stencil.cu",
+                      replaces="egonet_tpu/ops/pallas_block_stencil.py:160"),
+    ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,16 @@
-"""Configuration: the shipped demo config as a Python dict, and YAML loading.
+"""Configuration: the shipped demo config as a Python dict, YAML loading
+and the entry points' command line.
 
 A GPU host may lack PyYAML, so :func:`demo_config` needs no
-YAML at all and :func:`load_config` imports ``yaml`` only when called.  The
-dict below equals ``yaml.safe_load`` of
-``egonet_tpu/configs/KITTI_inference_demo.yml`` (asserted by the tests).
+YAML at all and :func:`load_config` imports ``yaml`` only when called (by
+:func:`parse_args`, when ``--cfg`` is read).  The dict below equals
+``yaml.safe_load`` of ``egonet_tpu/configs/KITTI_inference_demo.yml``
+(asserted by the tests).
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 
 import torch
@@ -107,6 +110,35 @@ def load_config(path: str) -> dict:
     with open(path, "r") as f:
         cfgs = yaml.safe_load(f)
     cfgs["config_path"] = path
+    return cfgs
+
+
+def str2bool(value) -> bool:
+    """Boolean command-line values: the usual spellings, anything else
+    raises (``type=bool`` would make ``--visualize False`` true)."""
+    if isinstance(value, bool):
+        return value
+    v = str(value).strip().lower()
+    if v in ("1", "true", "t", "yes", "y", "on"):
+        return True
+    if v in ("0", "false", "f", "no", "n", "off", ""):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a boolean, got {value!r}")
+
+
+def parse_args(argv=None) -> dict:
+    """``--cfg <yaml>`` (required), ``--visualize`` and ``--batch_to_show``,
+    as the JAX package's entry points take them -> the config dict."""
+    parser = argparse.ArgumentParser(description="egonet_tpu_torch entry point")
+    parser.add_argument("--cfg", type=str, required=True,
+                        help="experiment configuration file path")
+    parser.add_argument("--visualize", default=False, type=str2bool,
+                        nargs="?", const=True)
+    parser.add_argument("--batch_to_show", default=1_000_000, type=int)
+    args, _unknown = parser.parse_known_args(argv)
+    cfgs = load_config(args.cfg)
+    cfgs["visualize"] = args.visualize
+    cfgs["batch_to_show"] = args.batch_to_show
     return cfgs
 
 

@@ -1,6 +1,7 @@
 """Constants the inference slice reads (copy of the matching parts of
-``egonet_tpu/constants.py``): the crop-scale convention, the cuboid edge
-interpolation table, ImageNet statistics and the add_xy 0-255 quirk."""
+``egonet_tpu/constants.py``): the crop-scale convention, the KITTI label
+schema, the cuboid edge interpolation table, ImageNet statistics and the
+add_xy 0-255 quirk."""
 
 from __future__ import annotations
 
@@ -8,6 +9,22 @@ import numpy as np
 
 # Scale convention: a crop "scale" of s covers s*SIZE source pixels.
 SIZE = 200.0
+
+TYPE_ID_CONVERSION = {
+    "Car": 0,
+    "Cyclist": 1,
+    "Pedestrian": 2,
+}
+
+# KITTI label txt columns (ground truth); predictions append a score column.
+FIELDNAMES = [
+    "type", "truncated", "occluded", "alpha",
+    "xmin", "ymin", "xmax", "ymax",
+    "dh", "dw", "dl",
+    "lx", "ly", "lz",
+    "ry",
+]
+FIELDNAMES_P = FIELDNAMES + ["score"]
 
 # Cuboid corner numbering (1-based, canonical 9-point cuboid [center,
 # c1..c8]).  Each of the 12 edges is a (parent, child) pair: the first 4

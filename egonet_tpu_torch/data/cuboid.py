@@ -1,6 +1,8 @@
-"""Canonical 3D cuboid construction (NumPy; copy of the matching parts of
-``egonet_tpu/data/cuboid.py``).  Used to place a realistic cuboid as the
-lifter's output mean when no trained ``LS.npy`` is at hand."""
+"""Canonical 3D cuboid construction, camera-frame placement, projection and
+the in-image visibility flag (NumPy; copy of the matching parts of
+``egonet_tpu/data/cuboid.py``).  The KITTI reader projects labeled cuboids
+with them; the cuboid also serves as the lifter's output mean when no
+trained ``LS.npy`` is at hand."""
 
 from __future__ import annotations
 
@@ -44,3 +46,42 @@ def construct_box_3d(l: float, h: float, w: float,
 def rot_y_matrix(ry: float) -> np.ndarray:
     c, s = np.cos(ry), np.sin(ry)
     return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+
+
+def rotation_matrix_xyz(rx: float, ry: float, rz: float) -> np.ndarray:
+    """Rz @ Ry @ Rx."""
+    cx, sx = np.cos(rx), np.sin(rx)
+    cz, sz = np.cos(rz), np.sin(rz)
+    mx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+    mz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    return mz @ rot_y_matrix(ry) @ mx
+
+
+def place_cuboid(corners_canonical: np.ndarray, pose_vec: np.ndarray,
+                 shift: np.ndarray, rot_xz: bool = False) -> np.ndarray:
+    """Rotate + translate the canonical cuboid [3, K] into the camera frame.
+    pose_vec [6] = (x, y, z, rx, ry, rz); shift [3, 1] = K^-1 @ P[:, 3].
+    Returns [K, 3]."""
+    x, y, z, rx, ry, rz = [float(v) for v in np.asarray(pose_vec).reshape(6)]
+    rot = rotation_matrix_xyz(rx, ry, rz) if rot_xz else rot_y_matrix(ry)
+    pts = rot @ corners_canonical
+    pts = pts + np.array([x, y, z]).reshape(3, 1) + shift.reshape(3, 1)
+    return pts.T
+
+
+def project_3d_to_2d(points: np.ndarray, K: np.ndarray) -> np.ndarray:
+    """Pinhole projection of [N, 3] camera points -> [3, N] rows (u, v,
+    depth)."""
+    projected = K @ points.T
+    projected = projected.astype(np.float64).copy()
+    projected[:2, :] /= projected[2, :]
+    return projected
+
+
+def add_visibility(joints: np.ndarray, img_width: int = 1242,
+                   img_height: int = 375) -> np.ndarray:
+    """Append a binary in-image flag to [N, 2] screen points."""
+    assert joints.shape[1] == 2
+    inside = ((joints[:, 0] > 0.0) & (joints[:, 1] > 0.0)
+              & (joints[:, 0] < img_width) & (joints[:, 1] < img_height))
+    return np.hstack([joints, inside.astype(np.float64).reshape(-1, 1)])

@@ -1,7 +1,8 @@
 """KITTI-format label emission, byte-compatible with the JAX package's
 writer (``egonet_tpu/io/kitti_writer.py``): field order, fixed-point
 precisions, the h w l reorder, the trailing space on every line, and the
-rule that only rot_y and alpha of a detector line are overwritten."""
+rule that only rot_y and alpha of a detector line are overwritten; and the
+empty files a test-split submission needs."""
 
 from __future__ import annotations
 
@@ -54,3 +55,20 @@ def save_txt_file(img_path: str, pred_str: str, save_dir: str) -> str:
     with open(save_path, "w") as f:
         f.write(pred_str)
     return save_path
+
+
+def generate_empty_files(output_dir: str, label_dir: str) -> int:
+    """Write an empty ``<output_dir>/data/<name>.txt`` for every
+    ``<label_dir>/<name>.txt`` that has no prediction file (a test-split
+    submission needs one file per frame).  Returns how many it wrote."""
+    data_dir = os.path.join(output_dir, "data")
+    detected = set(os.listdir(data_dir)) if os.path.isdir(data_dir) else set()
+    os.makedirs(data_dir, exist_ok=True)
+    count = 0
+    for file_name in os.listdir(label_dir):
+        if not file_name.endswith(".txt"):
+            continue
+        if file_name not in detected:
+            open(os.path.join(data_dir, file_name), "w").close()
+            count += 1
+    return count

@@ -1,9 +1,10 @@
 """EgoNet end-to-end inference facade in PyTorch: crop -> keypoints -> lift
 -> 6DoF -> alpha.  Port of ``egonet_tpu/models/egonet.py``.
 
-Per batch, the host decodes nothing (images arrive decoded, or through
-``load_image``), computes the 2x3 crop matrices and packs the source
-pixels (ROI-packed canvas or full canvases); the device runs
+Per batch, the host takes decoded frames (``annot_dict["images"]``) or
+decodes them through ``load_image`` and the decoded-image store, computes
+the 2x3 crop matrices and packs the source pixels (ROI-packed canvas or
+full canvases); the device runs
 
     separable affine warp + normalization            (ops/affine.py)
     HRNet 'coordinates' head -> local coords [N, 33, 2] (models/hrnet.py;
@@ -118,6 +119,16 @@ class EgoNet:
         self.to_device()
         self.transport_stats = {"packed_batches": 0, "canvas_batches": 0,
                                 "packed_bytes": 0, "canvas_bytes": 0}
+        # decoded-image store (cfg: cache_images, default on;
+        # image_cache_bytes; image_disk_cache, a directory for the raw
+        # uint8 disk tier)
+        self.image_store = None
+        if cfgs.get("cache_images", True):
+            from egonet_tpu_torch.data.image_store import ImageStore
+            disk = cfgs.get("image_disk_cache") or None
+            self.image_store = ImageStore(
+                int(cfgs.get("image_cache_bytes", 2 << 30)),
+                disk_dir=disk if isinstance(disk, str) else None)
 
     def to_device(self):
         """Move parameters and LS statistics to the device ONCE (HRNet in
@@ -227,13 +238,12 @@ class EgoNet:
     # ------------------------------------------------------------------
 
     def load_image(self, path: str) -> np.ndarray:
-        """PNG/JPEG -> RGB uint8 (cv2, imported here: GPU hosts may lack
-        it; callers there pass decoded ``annot_dict["images"]``)."""
-        import cv2
-        img = cv2.imread(path, 1 | 128)
-        if img is None:
-            raise ValueError(f"Fail to read {path}")
-        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+        """Image file -> RGB uint8, through the decoded-image store when
+        there is one (cv2 where it imports, else the stdlib PNG reader)."""
+        if self.image_store is not None:
+            return self.image_store.get(path)
+        from egonet_tpu_torch.data.image_store import decode_image
+        return decode_image(path)
 
     def forward_annot_dict(self, annot_dict: dict, enlarge: float = 1.1,
                            alpha_mode: str = "proj",

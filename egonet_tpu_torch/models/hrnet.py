@@ -12,10 +12,17 @@ sigmoid; maps returned NCHW; BN eps 1e-5.
 Precision: in bf16 runs each conv computes in bf16 and each batch norm in
 fp32, then the result is cast back to bf16 (as the JAX model does).  The
 trunk runs ``channels_last``.  In eval mode with bf16 activations, every
-stride-1 identity-residual branch BasicBlock (104 of them in W48) goes
-through ``ops.fused_block.fused_basic_block`` with BN folded — the Hopper
-kernel on CUDA, its plain version on the CPU.  Train mode, fp32 runs,
-stride-2 and downsampling blocks stay unfused torch ops (cuDNN).
+stride-1 identity-residual branch BasicBlock (104 of them in W48) goes,
+with BN folded, through one of two Hopper kernels that compute the same
+function (their plain version on the CPU):
+
+* ``ops.fused_block.fused_basic_block``, the tiled kernel (default);
+* ``ops.fused_block_stencil.fused_basic_block_stencil``, the row-streaming
+  kernel, selected by ``EGONET_PALLAS_STENCIL=1`` (or ``'auto'``: when its
+  probe passes), or by ``prepare_inference(stencil="1")``.
+
+Train mode, fp32 runs, stride-2 and downsampling blocks stay unfused torch
+ops (cuDNN).
 
 Not ported yet (raise NotImplementedError): the 'heatmap' and
 'angleregression' heads, ``fuse_merge`` and ``act_quant``.
@@ -28,7 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from egonet_tpu_torch.ops import fused_block
+from egonet_tpu_torch.ops import fused_block, fused_block_stencil
 
 BN_MOMENTUM = 0.1
 
@@ -74,12 +81,20 @@ def _conv_bn(cin, cout, k, stride=1, padding=None):
 
 
 class _Ops:
-    """The primitive layers, parameterized by the compute dtype and an
-    optional table of pre-cast weights (see ``prepare_inference``)."""
+    """The primitive layers, parameterized by the compute dtype, an
+    optional table of pre-cast weights and the choice of fused-block kernel
+    (see ``prepare_inference``)."""
 
-    def __init__(self, dtype, cast):
+    def __init__(self, dtype, cast, stencil=False):
         self.dtype = dtype
         self.cast = cast or {}
+        self.stencil = stencil
+
+    def fused_block(self, x, folded):
+        """The chosen kernel's wrapper on NHWC x (looked up at call time)."""
+        if self.stencil:
+            return fused_block_stencil.fused_basic_block_stencil(x, *folded)
+        return fused_block.fused_basic_block(x, *folded)
 
     def conv(self, m: nn.Conv2d, x):
         w = self.cast.get(m)
@@ -115,9 +130,9 @@ class BasicBlock(nn.Module):
     def run(self, ops: _Ops, x, folded=None):
         if folded is not None:
             # NCHW channels_last storage is NHWC: permutes are views
-            y = fused_block.fused_basic_block(
+            y = ops.fused_block(
                 x.contiguous(memory_format=torch.channels_last)
-                .permute(0, 2, 3, 1), *folded)
+                .permute(0, 2, 3, 1), folded)
             return y.permute(0, 3, 1, 2)
         residual = x
         y = torch.relu(ops.bn(self.bn1, ops.conv(self.conv1, x)))
@@ -242,6 +257,9 @@ class PoseHighResolutionNet(nn.Module):
         # eval-mode bf16 runs send the fusable branch blocks through the
         # fused kernel; False keeps every block on unfused torch ops
         self.fuse_blocks = True
+        # EGONET_PALLAS_STENCIL value given to prepare_inference (None: the
+        # environment's); kept so that a rebuild keeps the choice
+        self.stencil = None
         self._inference_cache = None
 
         self.conv1 = _conv(in_channels, 64, 3, 2)
@@ -317,12 +335,20 @@ class PoseHighResolutionNet(nn.Module):
                         if blk.fusable:
                             yield blk
 
-    def prepare_inference(self):
-        """Fold BN into every fusable branch block and pre-cast the conv
+    def prepare_inference(self, stencil: str | None = None):
+        """Fold BN into every fusable branch block, pre-cast the conv
         weights to the compute dtype, once, from the current fp32
-        parameters.  Rebuilt after ``load_state_dict`` and whenever the
-        parameters move (``.to``) or train mode is entered."""
-        cache = {"folded": {}, "cast": {}}
+        parameters, and choose the fused-block kernel:
+        ``fused_block_stencil.stencil_enabled(stencil)`` ('0' tiled, '1'
+        stencil, 'auto' probe; None reads EGONET_PALLAS_STENCIL).  Both
+        kernels take the same folded weights.  Rebuilt after
+        ``load_state_dict`` and whenever the parameters move (``.to``) or
+        train mode is entered; an explicit ``stencil`` is kept for those
+        rebuilds."""
+        if stencil is not None:
+            self.stencil = stencil
+        cache = {"folded": {}, "cast": {},
+                 "stencil": fused_block_stencil.stencil_enabled(self.stencil)}
         if self.dtype == torch.bfloat16:
             with torch.no_grad():
                 for blk in self._fusable_blocks():
@@ -357,7 +383,8 @@ class PoseHighResolutionNet(nn.Module):
         if inference and self._inference_cache is None:
             self.prepare_inference()
         cache = self._inference_cache if inference else None
-        ops = _Ops(self.dtype, cache["cast"] if cache else None)
+        ops = _Ops(self.dtype, cache["cast"] if cache else None,
+                   bool(cache and cache["stencil"]))
         folded = (cache["folded"] if cache and self.fuse_blocks
                   else {})
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)

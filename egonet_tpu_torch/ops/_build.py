@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, the first time it is used (or when its
-source is newer than the library), and loaded with ``ctypes``.  Nothing
+source or a shared ``csrc/*.cuh`` header is newer than the library), and
+loaded with ``ctypes``.  Nothing
 includes PyTorch's headers, so a build takes seconds.  Libraries land in
 ``egonet_tpu_torch/_build/`` (listed in ``.gitignore``).
 
@@ -48,9 +49,15 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or any shared
+    ``csrc/*.cuh`` header."""
     src, lib = _paths(name)
-    return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(src))
+    if not os.path.exists(lib):
+        return True
+    headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+               if f.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(map(os.path.getmtime,
+                                           [src, *headers]))
 
 
 def build(names) -> None:

@@ -137,6 +137,66 @@ def modify_bbox(bbox, target_ar: float, enlarge: float = 1.1) -> dict:
     return resize_bbox(l[0], l[1], l[2], l[3], target_ar=target_ar)
 
 
+def cs2bbox(center, size):
+    """(center, half-size) -> [x1, y1, x2, y2]."""
+    return [center[0] - size[0], center[1] - size[1],
+            center[0] + size[0], center[1] + size[1]]
+
+
+def resize_crop(crop_size, target_ar=None):
+    if target_ar is None:
+        return crop_size
+    width, height = crop_size[0], crop_size[1]
+    if height / width > target_ar:
+        return [height / target_ar, height]
+    return [width, width * target_ar]
+
+
+def kpts2cs(keypoints: np.ndarray,
+            enlarge: float = 1.1,
+            method: str = "boundary",
+            target_ar=None,
+            use_visibility: bool = True):
+    """Tight crop center / half-size from instance keypoints [K, 2 or 3].
+    Returns (center, crop_half_size, shifted_keypoints, visible_rate)."""
+    assert keypoints.shape[1] in (2, 3)
+    if keypoints.shape[1] == 2:
+        visible = keypoints
+        visible_idx = np.arange(len(keypoints))
+        vis_rate = 1.0
+    elif use_visibility:
+        visible_idx = keypoints[:, 2].nonzero()[0]
+        visible = keypoints[visible_idx, :2]
+        vis_rate = len(visible) / len(keypoints)
+    else:
+        visible = keypoints[:, :2]
+        visible_idx = np.arange(len(keypoints))
+        vis_rate = 1.0
+
+    if method == "centroid":
+        center = np.ceil(visible.mean(axis=0, keepdims=True))
+        dif = np.abs(visible - center).max(axis=0, keepdims=True)
+        crop_size = np.ceil(dif * enlarge).squeeze()
+        center = center.squeeze()
+    elif method == "boundary":
+        lt = visible.min(axis=0, keepdims=True)
+        rb = visible.max(axis=0, keepdims=True)
+        center = ((lt + rb) / 2.0).squeeze()
+        crop_size = ((rb - lt) * enlarge / 2.0).squeeze()
+    else:
+        raise NotImplementedError(method)
+
+    crop_size = resize_crop(crop_size, target_ar)
+    x1, y1, _, _ = cs2bbox(center, crop_size)
+    origin = np.array([[x1, y1]], dtype=keypoints.dtype)
+    new_keypoints = keypoints.copy()
+    if keypoints.shape[1] == 2:
+        new_keypoints = visible - origin
+    else:
+        new_keypoints[visible_idx, :2] = visible - origin
+    return center, crop_size, new_keypoints, vis_rate
+
+
 def crop_matrices_for_boxes(boxes: np.ndarray, output_size,
                             target_ar: float, enlarge: float = 1.1):
     """Forward+inverse affine matrices for a stack of detection boxes.
