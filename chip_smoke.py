@@ -4,15 +4,19 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
 
 1. Prints the card (name, power limit), torch and CUDA versions, and builds
    every CUDA kernel of the port from csrc/ with nvcc (one nvcc per source,
-   all started together).
+   all started together); prints each kernel variant's registers and
+   spills, and SASS opcode counts of both libraries with an excerpt of the
+   tiled kernel's K loop (cuobjdump -sass).
 2. Kernel phase, tiled fused BasicBlock: at each W48 shape (C, H) in
    {(48, 64), (96, 32), (192, 16), (384, 8)}, batch 32, random folded
-   weights and BN stats (and, checked only, at two odd shapes), the
+   weights and BN stats (and, checked only, at four odd shapes), the
    kernel is held against its plain PyTorch version on the card (bf16,
    atol 5e-2 / rtol 2e-2: the two differ only in summation order over
    9C terms) and timed with CUDA events beside the
    plain version, two cuDNN convs doing the same block (``library_ms``,
-   timed only, never called by the port) and the card's bound.
+   timed only, never called by the port), the card's bound and every
+   other tile of ALT_TILES (each also checked; their kernel variants are
+   built into a library of their own, which the port does not load).
 3. Kernel phase, row-streaming (stencil) fused BasicBlock: the same checks
    at the same four shapes and at three odd ones (two from step 2 and one
    whose width no column tile divides), timed beside its plain version,
@@ -39,8 +43,11 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    GT-box and submission paths: every instance gets a 17-field line whose
    fields other than alpha and rot_y equal the input line's bytes, with
    finite angles.
-7. Prints one JSON line per kernel shape and phase, the {"kernels": [...]}
-   line, the card line, and last {"ok": true, "device": {...}}.
+7. Prints one JSON line per kernel shape and phase, the tiled kernel's
+   earlier time per forward (a past figure from PERF.md, labelled so), the
+   {"kernels": [...]} line (every number in it measured or, for
+   ``bound_ms``, reckoned in this run), the card line, and last
+   {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
 Any failure raises (non-zero exit).
@@ -57,8 +64,27 @@ import zlib
 
 W48_SHAPES = ((48, 64), (96, 32), (192, 16), (384, 8))
 # checked only (not timed): a W32 width, whose C is no multiple of 48 (the
-# kernel's one-N-tile variant), and a map no tile divides
+# kernel's two- and four-N-tile variants), and a map no tile divides
 EXTRA_SHAPES = ((32, 64, 4), (64, 10, 3))
+# the tiled kernel's other odd shapes (C, H, W, B): a map that no tile
+# divides in either direction, and one image at C=384
+TILED_EXTRA = ((96, 20, 36, 3), (384, 8, 8, 1))
+# other (TH, TW, NB, KS) tiles of the tiled kernel, checked and timed at
+# each W48 shape beside the chosen one (fb.tile_for)
+ALT_TILES = {48: ((8, 16, 1, 48), (8, 16, 1, 144), (16, 16, 1, 144),
+                  (32, 16, 1, 144), (16, 32, 1, 48)),
+             96: ((8, 16, 1, 48), (8, 16, 1, 96), (16, 16, 1, 48),
+                  (16, 16, 1, 144), (8, 32, 1, 96)),
+             192: ((8, 8, 1, 48), (8, 8, 1, 144), (4, 16, 1, 96),
+                   (8, 16, 1, 48), (4, 8, 2, 96)),
+             384: ((2, 8, 1, 48), (4, 8, 1, 48), (8, 4, 1, 48),
+                   (2, 4, 1, 48), (2, 4, 2, 48))}
+# the tiled kernel's time per W48 forward at 32 crops before its redesign
+# (WMMA fragments loaded from L2): a past figure, printed apart from the
+# kernels line
+EARLIER = {"fused_basic_block_ms_per_forward": 24.07,
+           "source": "PERF.md, section 6: the WMMA version on an H100 80GB "
+                     "HBM3 at 700.00 W"}
 # the stencil's odd shapes (C, H, W, B): those above and a width that no
 # column tile divides
 STENCIL_EXTRA = ((32, 64, 64, 4), (64, 10, 10, 3), (48, 12, 37, 5))
@@ -78,6 +104,25 @@ def _card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def _ptxas_summary(log):
+    """One "<template args>: N registers, S bytes spilled" item per kernel
+    variant in nvcc's -Xptxas -v output."""
+    import re
+    items, name, spill = [], "?", "?"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = "<" + ",".join(re.findall(r"Li(\d+)E", m.group(1))) + ">"
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            items.append(f"{name}: {m.group(1)} registers, {spill} bytes "
+                         "spilled")
+    return items
 
 
 def _time_ms(torch, fn, iters=20, warmup=3):
@@ -133,13 +178,26 @@ def _bound(c, h, w):
     return ops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def kernel_phase(torch, fb):
-    """Check the tiled fused block at the odd shapes, check and time it at
-    every W48 shape."""
+def _tile_name(tile):
+    return "x".join(map(str, tile))
+
+
+def sweep_plans(fb):
+    """{C: [(tile, plan)]} of the ALT_TILES that fit."""
+    return {c: [(t, fb.plan_for(c, t)) for t in ALT_TILES[c]
+                if fb.tile_fits(c, t)] for c, _ in W48_SHAPES}
+
+
+def kernel_phase(torch, fb, sweep, sweep_lib):
+    """Check the tiled fused block at the odd shapes; check and time it at
+    every W48 shape, with every plan of ``sweep`` (launched from
+    ``sweep_lib``) checked and timed beside the chosen one."""
+    import dataclasses
     rows = []
     g = torch.Generator(device="cuda").manual_seed(0)
-    for c, h, batch in EXTRA_SHAPES:
-        x, folded = _block_inputs(torch, fb, g, c, h, batch)
+    odd = [(c, h, h, b) for c, h, b in EXTRA_SHAPES] + list(TILED_EXTRA)
+    for c, h, w, batch in odd:
+        x, folded = _block_inputs(torch, fb, g, c, h, batch, w)
         y = fb.fused_basic_block(x, *folded)
         torch.cuda.synchronize()
         torch.testing.assert_close(
@@ -148,8 +206,10 @@ def kernel_phase(torch, fb):
     for c, h in W48_SHAPES:
         x, (w1, b1, w2, b2) = _block_inputs(torch, fb, g, c, h, BATCH)
 
-        def kernel():
-            return fb.fused_basic_block(x, w1, b1, w2, b2)
+        def kernel(launcher=None):
+            if launcher is None:
+                return fb.fused_basic_block(x, w1, b1, w2, b2)
+            return fb._launch(x, w1, b1, w2, b2, *launcher)
 
         def plain():
             return fb.fused_basic_block_reference(x, w1, b1, w2, b2)
@@ -165,18 +225,65 @@ def kernel_phase(torch, fb):
         lib_y = library().permute(0, 2, 3, 1)
         torch.testing.assert_close(lib_y.float(), ref.float(), atol=0.25,
                                    rtol=5e-2)
+        alt = [(t, fb._launcher(plan, sweep_lib)) for t, plan in sweep[c]]
+        for _, launcher in alt:
+            y = kernel(launcher)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(y.float(), ref.float(), atol=5e-2,
+                                       rtol=2e-2)
         ops_ms, bytes_ms = _bound(c, h, h)
         row = {"shape": {"C": c, "H": h, "W": h, "B": BATCH},
                "tile": list(fb.tile_for(c)),
+               "plan": dataclasses.asdict(fb.plan_for(c)),
                "max_abs_err": err,
                "ms": _time_ms(torch, kernel),
                "plain_ms": _time_ms(torch, plain, iters=5),
                "library_ms": _time_ms(torch, library),
+               "alt_tiles_ms": {_tile_name(t): _time_ms(
+                   torch, lambda a=a: kernel(a), iters=10) for t, a in alt},
                "ops_ms": ops_ms, "bytes_ms": bytes_ms}
         row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
         print(json.dumps({"fused_basic_block": row}), flush=True)
         rows.append(row)
     return rows
+
+
+def sass_report(_build, fb, names):
+    """Per library, counts of the SASS opcodes that show how the fused
+    kernels feed their tensor cores (cuobjdump -sass of the built library):
+    LDSM (ldmatrix), HMMA (mma), LDS (other shared loads), LD / LDG
+    (generic and global loads), BAR; and 20 instructions of the tiled
+    kernel's K loop, from its first HMMA, in the variant of the C=96
+    plan."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    plan = fb.plan_for(96)
+    variant = f"ILi{plan.mt}ELi{plan.nt}ELi{plan.ks}E"
+    out, excerpt = {}, []
+    for name in names:
+        sass = subprocess.run(
+            [cuobjdump, "-sass", _build._paths(name)[1]], capture_output=True,
+            text=True, check=True, timeout=300).stdout
+        count, in_variant = {}, False
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                in_variant = name == "fused_basic_block" and variant in ln
+            if not ln.strip().startswith("/*") or "*/" not in ln:
+                continue
+            text = ln.split("*/")[1].split("/*")[0].strip()
+            if not text:
+                continue
+            tokens = text.split()
+            if tokens and tokens[0].startswith("@"):
+                tokens = tokens[1:]
+            base = tokens[0].split(".")[0]
+            if base in ("LDSM", "HMMA", "LDS", "LD", "LDG", "BAR"):
+                count[base] = count.get(base, 0) + 1
+            if in_variant and (excerpt or base == "HMMA") and \
+                    len(excerpt) < 20:
+                excerpt.append(text)
+        out[name] = count
+    return {"counts": out, "tiled_k_loop_excerpt": {
+        "variant": f"<{plan.mt},{plan.nt},{plan.ks}>", "sass": excerpt}}
 
 
 def stencil_kernel_phase(torch, fb, st):
@@ -605,15 +712,19 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}; CUDA {torch.version.cuda}",
           flush=True)
     full_precision_fp32()
+    sweep = sweep_plans(fb)
+    sweep_lib = fb.library([p for plans in sweep.values() for _, p in plans])
     t0 = time.perf_counter()
-    _build.build(["fused_basic_block", "fused_basic_block_stencil"])
+    _build.build([fb.library(), sweep_lib, "fused_basic_block_stencil"])
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, info in _build.BUILD_INFO.items():
-        print(f"[{name}] " + " ".join(
-            ln.strip() for ln in info["log"].splitlines()
-            if "registers" in ln or "spill" in ln), flush=True)
+        print(f"[{name}] built in {info['seconds']:.1f} s; "
+              + "; ".join(_ptxas_summary(info["log"])), flush=True)
 
-    rows = kernel_phase(torch, fb)
+    print(json.dumps({"sass": sass_report(
+        _build, fb, ["fused_basic_block", "fused_basic_block_stencil"])}),
+        flush=True)
+    rows = kernel_phase(torch, fb, sweep, sweep_lib)
     srows = stencil_kernel_phase(torch, fb, st)
     result, model, annot, ry, ry_u = slice_phase(torch, np, fb, st)
     print(json.dumps({"slice": result}), flush=True)
@@ -626,6 +737,7 @@ def main() -> int:
     print(json.dumps({"cli": cli}), flush=True)
 
     assert sum(PER_FORWARD.values()) == result["launches_per_forward"]
+    print(json.dumps({"earlier": EARLIER}), flush=True)
     print(json.dumps({"kernels": [
         _kernel_entry(rows, result["launches"], name="fused_basic_block",
                       route="cuda",

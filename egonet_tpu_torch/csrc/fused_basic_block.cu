@@ -12,284 +12,437 @@
 // pack_block_weights); b1, b2 fp32 [C].  Accumulation is fp32; mid is
 // rounded to bf16 (as the TPU kernel stores it).
 //
-// Design (simple and right first; see ops/fused_block.py for the bound):
-//   * one thread block per (image, TH x TW output tile), 8 warps;
-//   * the input tile plus a 2-pixel halo is staged in shared memory, zero
-//     outside the image;
-//   * conv1 is an implicit GEMM over the (TH+2) x (TW+2) mid positions,
-//     conv2 one over the TH x TW outputs, both on bf16 WMMA tensor-core
-//     fragments (16x16x16, fp32 accumulators).  Both shared-memory tiles
-//     use the same row pitch of TW+4 positions, so the 16 GEMM rows of a
-//     fragment are 16 consecutive positions at a uniform stride and a tap
-//     (dy, dx) is just an offset of dy*(TW+4)+dx rows.  The columns past
-//     TW+2 (mid) / TW (output) are computed and thrown away;
-//   * mid positions outside the image are forced to zero (NOT relu(b1)):
-//     that is the zero padding conv2 must read;
-//   * weights are read from global memory / L2 in 16-deep K chunks (at
-//     C=384, 9C*C bf16 is 2.65 MB and does not fit in shared memory); each
-//     fetched fragment feeds two M tiles, and the next step's fragments
-//     are fetched before the current step's MMAs.
+// Bound on the H100: operations.  A launch does 4*B*H*W*9*C^2 operations
+// (10.9 GFLOP at every W48 shape at B=32, 0.011 ms at 989 TFLOP/s) and must
+// move 4*B*H*W*C + 36*C^2 bytes (2.3-7.5 us at 3.35 TB/s).  What stands
+// between the kernel and that bound is feeding the tensor cores: every
+// block reads both weight matrices (9C x C each, 2.65 MB at C=384) from L2,
+// and every operand fragment reaches the tensor cores from shared memory.
+// At C=384 the weight stream binds (128 blocks x 5.3 MB per launch; see
+// PERF.md); weight multicast across a cluster is the answer there.
+//
+// Design:
+//   * one thread block (8 warps) per NB images x TH x TW output tile; the
+//     launch plan (tile, warp grid, K slab depth, slab buffers, shared-
+//     memory layout) is computed by ops/fused_block.py (plan_for), passed
+//     in as `Plan` and checked here against the layout the kernel uses;
+//   * the input tile plus a 2-pixel halo, (TH+4) x (TW+4) positions per
+//     image, is copied into shared memory with cp.async, zero outside the
+//     image and past the batch;
+//   * conv1 is an implicit GEMM whose M rows are the real mid positions,
+//     NB x (TH+2) x (TW+2), and conv2 one whose rows are the real output
+//     positions, NB x TH x TW.  ldmatrix takes one row address per lane,
+//     so each lane points its row straight at its position's channels and
+//     a tap (dy, dx) is a constant byte offset for every row: no position
+//     is computed that is then thrown away, except the rows of the last M
+//     tile past the real count, which read a valid position and are
+//     dropped in the epilogue;
+//   * the weights stream through shared memory in K slabs of KS columns
+//     ([C][KS + 8] bf16, 2-3 slab buffers, copied by all threads with
+//     cp.async), so every weight byte leaves L2 once per block and conv
+//     (per pass, see below); the next conv's first slabs stream in during
+//     the epilogue of the one before;
+//   * the warps form a WM x WN grid over the block's GEMM: warp (i, j)
+//     owns N tiles j*NT .. j*NT+NT-1 (16 output channels each) and M tiles
+//     i, i + WM, ... (MT of them per pass; more passes only where the
+//     accumulators would not fit in registers), so each A fragment feeds NT
+//     N tiles and each B fragment MT M tiles.  The K walk is compiled for
+//     each count of real M tiles a warp can hold, so it has no branch per
+//     tile; variants with few accumulators are held to 128 registers, two
+//     blocks per SM;
+//   * every fragment is one ldmatrix from a shared-space address; the row
+//     addresses are computed once per pass and the K walk only adds byte
+//     offsets (taps outer, 16-deep channel chunks inner, no division);
+//     shared rows are C + 8 channels apart (an odd multiple of 16 bytes),
+//     so the rows of an ldmatrix phase fall in distinct banks; the MMAs are
+//     raw mma.sync.m16n8k16 bf16 -> fp32;
+//   * the epilogues work on the accumulator registers (two adjacent
+//     channels per bf16x2 store): conv1 writes relu(acc + b1) into the mid
+//     tile, exact zero at positions outside the image (conv2's zero
+//     padding); conv2 adds b2 and the staged x, applies relu and stores y.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "mma_sm90.cuh"
+
+// The launch plan, computed by ops/fused_block.py (plan_for) and passed by
+// value; its ctypes mirror there (_PlanStruct) has the same fields in the
+// same order.
+struct Plan {
+  int th, tw, nb;   // output tile rows, columns; images per block
+  int cp;           // shared row pitch in channels (C + 8)
+  int mt, nt, ks;   // M tiles per warp and pass, N tiles per warp, K slab
+  int wm, wn;       // warps along M and along N
+  int stages;       // weight slab buffers (2 or 3)
+  int mid_off;      // byte offset of the mid tile in shared memory
+  int slab_off;     // byte offset of the first weight slab
+  int slab_bytes;   // bytes of one slab buffer
+  int smem;         // dynamic shared memory of the block, bytes
+};
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int kSmemLimit = 232448;
 
-struct Geometry {
-  int wp;        // row pitch of both shared tiles, in positions (TW + 4)
-  int m1_tiles;  // 16-row GEMM tiles of conv1 (mid positions)
-  int m2_tiles;  // 16-row GEMM tiles of conv2 (output positions)
-  int xs_rows;   // staged input positions (with slack for the tap offsets)
-  int mid_rows;  // mid positions
-};
-
-__host__ __device__ inline size_t align128(size_t b) {
-  return (b + 127) & ~size_t(127);
+// Checks the plan against the layout the kernel addresses: the x tile
+// before mid_off, the mid tile before slab_off, `stages` slabs of
+// [C][ks + 8] after it, all within the block's shared memory.
+__host__ inline bool plan_ok(const Plan& p, int C) {
+  const size_t xs = size_t(p.nb) * (p.th + 4) * (p.tw + 4) * p.cp * 2;
+  const size_t mid = size_t(p.nb) * (p.th + 2) * (p.tw + 2) * p.cp * 2;
+  return C % 16 == 0 && p.cp == C + 8 && p.th >= 1 && p.tw >= 1 &&
+         p.nb >= 1 && p.wm >= 1 && p.wn >= 1 && p.wm * p.wn <= kWarps &&
+         p.wn * p.nt * 16 >= C && (9 * C) % p.ks == 0 &&
+         p.stages >= 2 && p.stages <= 3 && p.mid_off % 128 == 0 &&
+         p.slab_off % 128 == 0 && p.slab_bytes % 128 == 0 &&
+         size_t(p.mid_off) >= xs && size_t(p.slab_off) >= p.mid_off + mid &&
+         size_t(p.slab_bytes) >= size_t(C) * (p.ks + 8) * 2 &&
+         p.smem == p.slab_off + p.stages * p.slab_bytes &&
+         p.smem <= kSmemLimit;
 }
 
-__host__ __device__ inline Geometry geometry(int TH, int TW) {
-  Geometry g;
-  g.wp = TW + 4;
-  g.m1_tiles = ((TH + 2) * g.wp + 15) / 16;
-  g.m2_tiles = (TH * g.wp + 15) / 16;
-  const int tap_slack = 2 * g.wp + 2;  // largest tap offset, in positions
-  g.xs_rows = (TH + 4) * g.wp;
-  if (g.m1_tiles * 16 + tap_slack > g.xs_rows)
-    g.xs_rows = g.m1_tiles * 16 + tap_slack;
-  g.mid_rows = g.m1_tiles * 16;
-  if (g.m2_tiles * 16 + tap_slack > g.mid_rows)
-    g.mid_rows = g.m2_tiles * 16 + tap_slack;
-  return g;
+// Start streaming the first stages - 1 K slabs of `w` into the slab
+// buffers, one cp.async group each (every thread must call it).
+template <int KS>
+__device__ __forceinline__ void prefetch_slabs(
+    const __nv_bfloat16* __restrict__ w, int C, const Plan p,
+    unsigned slabs) {
+  for (int j = 0; j < p.stages - 1; ++j) {
+    if (j < 9 * C / KS) fetch_slab<KS>(slabs + j * p.slab_bytes, w, j, C);
+    cp_async_commit();
+  }
 }
 
-__host__ __device__ inline size_t smem_bytes(int TH, int TW, int CP) {
-  const Geometry g = geometry(TH, TW);
-  return align128(size_t(g.xs_rows) * CP * 2) +
-         align128(size_t(g.mid_rows) * CP * 2) +
-         size_t(kWarps) * 256 * sizeof(float);
-}
-
-// M tiles per work item: each B (weight) fragment fetched from L2 feeds
-// kMT tensor-core MMAs.
-constexpr int kMT = 2;
-
-// One warp's share of an implicit-GEMM conv3x3: for every work item (kMT
-// 16-row M tiles x NG 16-column N tiles) accumulate over the 9C-deep K
-// axis in 16-deep steps, then hand each 16x16 fp32 tile to `epilogue`
-// through the warp's staging buffer.  Step s reads weight columns
-// [16s, 16s + 16) (tap-major rows make tap*C + k0 == 16s) and the
-// activation rows of tap s / (C/16) at channel offset 16 * (s % (C/16)).
-// The B fragments of step s+1 are loaded before the MMAs of step s, so
-// their L2 latency overlaps tensor-core work.
-template <int NG, typename Epilogue>
-__device__ __forceinline__ void conv3x3_gemm(
-    const __nv_bfloat16* __restrict__ act, int CP, int wp, int m_tiles,
-    const __nv_bfloat16* __restrict__ w, int C, float* stage,
-    Epilogue epilogue) {
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                               wmma::row_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                               wmma::col_major>;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  const int warp = threadIdx.x / 32;
-  const int n_groups = C / (16 * NG);
-  const int m_groups = (m_tiles + kMT - 1) / kMT;
-  const int k9 = 9 * C;
-  const int kc = C / 16;
-  const int steps = 9 * kc;
-  for (int item = warp; item < m_groups * n_groups; item += kWarps) {
-    const int mt0 = (item / n_groups) * kMT;
-    const int g = item % n_groups;
-    const int mts = min(kMT, m_tiles - mt0);  // warp-uniform
-    const __nv_bfloat16* b_base = w + size_t(g * NG * 16) * k9;
-    FragC acc[kMT][NG];
+// The K walk of one pass (every thread must call it): every K slab of `w`
+// through the slab buffers (the first stages - 1 already in flight), the
+// warp's MTS M tiles (rows at `a_row`) against its NT N tiles (at `b_off`
+// in a slab).  The K step s covers weight columns [16s, 16s + 16), tap
+// (dy, dx) = divmod(16s / C, 3) at channels 16s % C: a byte offset that
+// only grows, by 32 bytes per step and a tap jump when the channels wrap.
+template <int MTS, int MT, int NT, int KS>
+__device__ __forceinline__ void k_walk(float (&acc)[MT][NT][2][4],
+                                       const unsigned (&a_row)[MT],
+                                       const unsigned (&b_off)[NT],
+                                       const __nv_bfloat16* __restrict__ w,
+                                       int C, const Plan p, unsigned slabs,
+                                       int pitch) {
+  const int n_slabs = 9 * C / KS;
+  const unsigned pos_bytes = unsigned(p.cp) * 2;
+  const unsigned c_bytes = unsigned(C) * 2;
+  const unsigned dy_step = unsigned(pitch - 2) * pos_bytes;  // dx 2 -> 0
+  const unsigned slab_bytes = unsigned(p.slab_bytes);
+  const unsigned slab_end = slabs + unsigned(p.stages) * slab_bytes;
+  unsigned fetch = slabs + unsigned(p.stages - 1) * slab_bytes;
+  unsigned cur = slabs;
+  unsigned a_k = 0, k = 0;  // byte offsets: tap + channels, channels
+  int dx = 0;
+  for (int j = 0; j < n_slabs; ++j) {
+    // slab j has landed, and every warp is done with slab j - 1, whose
+    // buffer the next fetch reuses
+    cp_async_wait_slab(p.stages);
+    __syncthreads();
+    if (j + p.stages - 1 < n_slabs)
+      fetch_slab<KS>(fetch, w, j + p.stages - 1, C);
+    cp_async_commit();
+    fetch = fetch + slab_bytes == slab_end ? slabs : fetch + slab_bytes;
+    if constexpr (MTS > 0) {
 #pragma unroll
-    for (int i = 0; i < kMT; ++i)
+      for (int kk = 0; kk < KS / 16; ++kk) {
+        unsigned b[NT][4];
 #pragma unroll
-      for (int j = 0; j < NG; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-    auto load_b = [&](FragB (&bf)[NG], int s) {
+        for (int q = 0; q < NT; ++q) ldsm_x4(cur + b_off[q] + kk * 32, b[q]);
 #pragma unroll
-      for (int j = 0; j < NG; ++j)
-        wmma::load_matrix_sync(bf[j], b_base + size_t(j) * 16 * k9 + s * 16,
-                               k9);
-    };
-    auto mma_step = [&](const FragB (&bf)[NG], int s) {
-      const int tap = s / kc;
-      const int k0 = (s - tap * kc) * 16;
-      const __nv_bfloat16* a_base =
-          act + size_t(mt0 * 16 + (tap / 3) * wp + tap % 3) * CP + k0;
+        for (int i = 0; i < MTS; ++i) {
+          unsigned a[4];
+          ldsm_x4(a_row[i] + a_k, a);
 #pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        if (i < mts) {
-          FragA a;
-          wmma::load_matrix_sync(a, a_base + size_t(i) * 16 * CP, CP);
-#pragma unroll
-          for (int j = 0; j < NG; ++j)
-            wmma::mma_sync(acc[i][j], a, bf[j], acc[i][j]);
+          for (int q = 0; q < NT; ++q) {
+            mma16816(acc[i][q][0], a, b[q][0], b[q][1]);
+            mma16816(acc[i][q][1], a, b[q][2], b[q][3]);
+          }
         }
-      }
-    };
-
-    FragB b0[NG], b1[NG];
-    load_b(b0, 0);
-    for (int s = 0; s < steps; s += 2) {
-      if (s + 1 < steps) load_b(b1, s + 1);
-      mma_step(b0, s);
-      if (s + 1 < steps) {
-        if (s + 2 < steps) load_b(b0, s + 2);
-        mma_step(b1, s + 1);
+        // next 16 channels; past the last, the next tap (no branch)
+        k += 32;
+        const bool wrap = k == c_bytes;
+        const bool next_row = wrap && dx == 2;
+        a_k += 32 + (wrap ? (next_row ? dy_step : pos_bytes) - c_bytes : 0u);
+        dx = next_row ? 0 : dx + wrap;
+        k = wrap ? 0u : k;
       }
     }
+    cur = cur + slab_bytes == slab_end ? slabs : cur + slab_bytes;
+  }
+}
 
+// k_walk<mts, ...> for a run-time count 0 <= mts <= MT, so the walk itself
+// has no branch per M tile
+template <int MT, int NT, int KS, int I = MT>
+__device__ __forceinline__ void k_walk_for(int mts,
+                                           float (&acc)[MT][NT][2][4],
+                                           const unsigned (&a_row)[MT],
+                                           const unsigned (&b_off)[NT],
+                                           const __nv_bfloat16* __restrict__ w,
+                                           int C, const Plan p,
+                                           unsigned slabs, int pitch) {
+  if constexpr (I == 0) {
+    k_walk<0, MT, NT, KS>(acc, a_row, b_off, w, C, p, slabs, pitch);
+  } else {
+    if (mts == I)
+      k_walk<I, MT, NT, KS>(acc, a_row, b_off, w, C, p, slabs, pitch);
+    else
+      k_walk_for<MT, NT, KS, I - 1>(mts, acc, a_row, b_off, w, C, p, slabs,
+                                    pitch);
+  }
+}
+
+// One conv3x3 of the block as an implicit GEMM, by the whole block (every
+// thread must call it, with the first slabs of `w` in flight).  GEMM row r
+// (0 <= r < m_real) reads the activation position row_pos(r) of the shared
+// tile at `act` (CP channels per position, `pitch` positions per tile row),
+// shifted by dy * pitch + dx positions for tap (dy, dx).  After each pass's
+// K walk the first slabs of the next pass (or of `next_w`, the next conv's
+// weights, if not null) start streaming, and then, for every real row,
+// `row_info(r)` is called once and `store(info, channel, v0, v1)` for each
+// pair of adjacent output channels the warp owns, with the bias added.
+template <int MT, int NT, int KS, typename RowPos, typename RowInfo,
+          typename Store>
+__device__ __forceinline__ void conv_gemm(
+    unsigned act, int pitch, int m_real, RowPos row_pos,
+    const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
+    const __nv_bfloat16* __restrict__ next_w, int C, const Plan p,
+    unsigned slabs, RowInfo row_info, Store store) {
+  constexpr int KSP = KS + 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm_i = warp % p.wm, wn_i = warp / p.wm;
+  const bool active = wn_i < p.wn;  // warps past the grid only copy
+  const int n_tiles = C / 16;
+  const int m_tiles = (m_real + 15) / 16;
+  const int slots = (m_tiles + p.wm - 1) / p.wm;  // M tiles per warp
+  const int passes = (slots + MT - 1) / MT;
+
+  // B (weights, [n][k] in the slab): matrix l / 8 of an x4 load is rows
+  // (output channels) 8 * (l / 16) + 0..7, k half (l / 8) % 2.  An N tile
+  // past C (only where C / 16 is no multiple of NT) reads the last one and
+  // is dropped in the epilogue.
+  const unsigned b_lane =
+      ((lane % 8 + 8 * (lane / 16)) * KSP + ((lane / 8) % 2) * 8) * 2;
+  unsigned b_off[NT];
+  bool n_ok[NT];
 #pragma unroll
-    for (int i = 0; i < kMT; ++i) {
-      if (i < mts) {
+  for (int q = 0; q < NT; ++q) {
+    const int nt = wn_i * NT + q;
+    n_ok[q] = active && nt < n_tiles;
+    b_off[q] = b_lane + unsigned(min(nt, n_tiles - 1) * 16 * KSP * 2);
+  }
+
+  for (int pass = 0; pass < passes; ++pass) {
+    // A: lane l gives row l % 16 of the M tile at k half l / 16; the
+    // warp's real M tiles of this pass are the first mts
+    int m_t[MT];
+    unsigned a_row[MT];
+    int mts = 0;
 #pragma unroll
-        for (int j = 0; j < NG; ++j) {
-          wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-          __syncwarp();
-          epilogue((mt0 + i) * 16, (g * NG + j) * 16, stage);
-          __syncwarp();
+    for (int i = 0; i < MT; ++i) {
+      const int s = pass * MT + i;
+      m_t[i] = s * p.wm + wm_i;
+      mts += active && s < slots && m_t[i] < m_tiles;
+      const int r = min(m_t[i] * 16 + lane % 16, m_real - 1);
+      a_row[i] = act + unsigned(row_pos(r)) * p.cp * 2 + (lane / 16) * 16;
+    }
+    float acc[MT][NT][2][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int q = 0; q < NT; ++q)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][q][h][e] = 0.0f;
+
+    k_walk_for<MT, NT, KS>(mts, acc, a_row, b_off, w, C, p, slabs, pitch);
+    __syncthreads();  // every warp is done with the slab buffers
+    const __nv_bfloat16* nw = pass + 1 < passes ? w : next_w;
+    if (nw != nullptr) prefetch_slabs<KS>(nw, C, p, slabs);
+
+    // accumulator element e of half h: row lane / 4 + 8 * (e / 2), channel
+    // 8 * h + 2 * (lane % 4) + e % 2 of the 16-channel N tile
+    float2 bv[NT][2];
+#pragma unroll
+    for (int q = 0; q < NT; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        bv[q][h] = n_ok[q] ? *reinterpret_cast<const float2*>(
+                                 bias + (wn_i * NT + q) * 16 + 8 * h +
+                                 2 * (lane % 4))
+                           : make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      if (i >= mts) continue;
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int r = m_t[i] * 16 + lane / 4 + 8 * e2;
+        if (r >= m_real) continue;
+        const auto info = row_info(r);
+#pragma unroll
+        for (int q = 0; q < NT; ++q) {
+          if (!n_ok[q]) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            store(info, (wn_i * NT + q) * 16 + 8 * h + 2 * (lane % 4),
+                  acc[i][q][h][2 * e2] + bv[q][h].x,
+                  acc[i][q][h][2 * e2 + 1] + bv[q][h].y);
         }
       }
     }
   }
 }
 
-template <int NG>
-__global__ void __launch_bounds__(kThreads)
+struct OutRow {
+  long long y;  // element offset of the output position in y
+  int res;      // element offset of the same position in the x tile
+  bool ok;      // inside the image and the batch
+};
+
+// two blocks per SM (128 registers a thread) where the accumulators are few
+template <int MT, int NT, int KS>
+__global__ void __launch_bounds__(kThreads, MT * NT <= 6 ? 2 : 1)
 fused_basic_block_kernel(const __nv_bfloat16* __restrict__ x,
                          const __nv_bfloat16* __restrict__ w1,
                          const float* __restrict__ b1,
                          const __nv_bfloat16* __restrict__ w2,
                          const float* __restrict__ b2,
-                         __nv_bfloat16* __restrict__ y,
-                         int H, int W, int C, int TH, int TW, int CP,
-                         int tiles_x) {
+                         __nv_bfloat16* __restrict__ y, int N, int H, int W,
+                         int C, Plan p, int tiles_x) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Geometry geo = geometry(TH, TW);
-  const int wp = geo.wp;
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  const size_t xs_bytes = align128(size_t(geo.xs_rows) * CP * 2);
-  __nv_bfloat16* mid = reinterpret_cast<__nv_bfloat16*>(smem + xs_bytes);
-  const size_t mid_bytes = align128(size_t(geo.mid_rows) * CP * 2);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* stage =
-      reinterpret_cast<float*>(smem + xs_bytes + mid_bytes) + warp * 256;
-
-  const int n = blockIdx.y;
+  const unsigned xs = smem_addr(smem);
+  const unsigned mid = xs + p.mid_off;
+  const unsigned slabs = xs + p.slab_off;
+  const __nv_bfloat16* xs_ptr = reinterpret_cast<const __nv_bfloat16*>(smem);
+  __nv_bfloat16* mid_ptr = reinterpret_cast<__nv_bfloat16*>(smem + p.mid_off);
+  const int TH = p.th, TW = p.tw, NB = p.nb, CP = p.cp;
+  const int xh = TH + 4, xw = TW + 4, mh = TH + 2, mw = TW + 2;
   const int ty0 = (blockIdx.x / tiles_x) * TH;
   const int tx0 = (blockIdx.x % tiles_x) * TW;
+  const int n0 = blockIdx.y * NB;
+
+  // 1. x[n0 : n0+NB, ty0-2 : ty0+TH+2, tx0-2 : tx0+TW+2] into shared memory,
+  //    zero outside the image and past the batch (one cp.async group,
+  //    committed before the first weight slabs, so the wait for slab 0
+  //    covers it)
   const int cvec = C / 8;  // 16-byte vectors per position
-
-  // 1. stage x[ty0-2 : ty0+TH+2, tx0-2 : tx0+TW+2] (zero outside the image
-  //    and on the slack rows), and zero the mid rows conv1 never writes.
-  for (int i = threadIdx.x; i < geo.xs_rows * cvec; i += kThreads) {
-    const int r = i / cvec, v = i % cvec;
-    const int sy = r / wp, sx = r % wp;
-    const int gy = ty0 - 2 + sy, gx = tx0 - 2 + sx;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (sy < TH + 4 && gy >= 0 && gy < H && gx >= 0 && gx < W)
-      val = *reinterpret_cast<const uint4*>(
-          x + ((size_t(n) * H + gy) * W + gx) * C + v * 8);
-    *reinterpret_cast<uint4*>(xs + size_t(r) * CP + v * 8) = val;
+  for (int i = threadIdx.x; i < NB * xh * xw * cvec; i += kThreads) {
+    const int v = i % cvec, pos = i / cvec;
+    const int sx = pos % xw, sy = (pos / xw) % xh, nb = pos / (xw * xh);
+    const int n = n0 + nb, gy = ty0 - 2 + sy, gx = tx0 - 2 + sx;
+    const bool valid = n < N && gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const __nv_bfloat16* src =
+        valid ? x + ((size_t(n) * H + gy) * W + gx) * C + v * 8 : x;
+    cp_async16(xs + (pos * CP + v * 8) * 2, src, valid);
   }
-  for (int i = geo.m1_tiles * 16 * cvec + threadIdx.x;
-       i < geo.mid_rows * cvec; i += kThreads) {
-    const int r = i / cvec, v = i % cvec;
-    *reinterpret_cast<uint4*>(mid + size_t(r) * CP + v * 8) =
-        make_uint4(0u, 0u, 0u, 0u);
-  }
-  __syncthreads();
+  cp_async_commit();
+  prefetch_slabs<KS>(w1, C, p, slabs);
 
-  // 2. conv1 + b1 + relu over mid positions p = my * wp + mx, whose
-  //    absolute pixel is (ty0 - 1 + my, tx0 - 1 + mx).  Out-of-image and
-  //    past-the-tile positions are stored as exact zeros.
-  conv3x3_gemm<NG>(
-      xs, CP, wp, geo.m1_tiles, w1, C, stage,
-      [&](int p0, int c0, const float* st) {
-        for (int e = lane; e < 256; e += 32) {
-          const int p = p0 + e / 16, co = c0 + e % 16;
-          const int my = p / wp, mx = p % wp;
-          const int gy = ty0 - 1 + my, gx = tx0 - 1 + mx;
-          const bool inside = my < TH + 2 && mx < TW + 2 && gy >= 0 &&
-                              gy < H && gx >= 0 && gx < W;
-          const float v = inside ? fmaxf(st[e] + b1[co], 0.0f) : 0.0f;
-          mid[size_t(p) * CP + co] = __float2bfloat16(v);
-        }
+  // 2. conv1 + b1 + relu over the NB x mh x mw mid positions, whose pixel
+  //    is (ty0 - 1 + my, tx0 - 1 + mx); exact zero outside the image
+  conv_gemm<MT, NT, KS>(
+      xs, xw, NB * mh * mw,
+      [&](int r) {
+        const int mx = r % mw, my = (r / mw) % mh, nb = r / (mw * mh);
+        return (nb * xh + my) * xw + mx;
+      },
+      w1, b1, w2, C, p, slabs,
+      [&](int r) {
+        const int mx = r % mw, my = (r / mw) % mh;
+        const int gy = ty0 - 1 + my, gx = tx0 - 1 + mx;
+        const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        return make_int2(r * CP, in);  // mid rows are the GEMM rows
+      },
+      [&](int2 info, int co, float v0, float v1) {
+        *reinterpret_cast<__nv_bfloat162*>(mid_ptr + info.x + co) =
+            __floats2bfloat162_rn(info.y ? fmaxf(v0, 0.0f) : 0.0f,
+                                  info.y ? fmaxf(v1, 0.0f) : 0.0f);
       });
-  __syncthreads();
 
-  // 3. conv2 + b2 + residual (the staged bf16 x) + relu over output
-  //    positions q = oy * wp + ox; only oy < TH, ox < TW are real.
-  conv3x3_gemm<NG>(
-      mid, CP, wp, geo.m2_tiles, w2, C, stage,
-      [&](int q0, int c0, const float* st) {
-        for (int e = lane; e < 256; e += 32) {
-          const int q = q0 + e / 16, co = c0 + e % 16;
-          const int oy = q / wp, ox = q % wp;
-          const int gy = ty0 + oy, gx = tx0 + ox;
-          if (oy < TH && ox < TW && gy < H && gx < W) {
-            const float res = __bfloat162float(
-                xs[size_t((oy + 2) * wp + ox + 2) * CP + co]);
-            const float v = fmaxf(st[e] + b2[co] + res, 0.0f);
-            y[((size_t(n) * H + gy) * W + gx) * C + co] = __float2bfloat16(v);
-          }
-        }
+  // 3. conv2 + b2 + residual (the staged x) + relu over the NB x TH x TW
+  //    output positions
+  conv_gemm<MT, NT, KS>(
+      mid, mw, NB * TH * TW,
+      [&](int r) {
+        const int ox = r % TW, oy = (r / TW) % TH, nb = r / (TW * TH);
+        return (nb * mh + oy) * mw + ox;
+      },
+      w2, b2, nullptr, C, p, slabs,
+      [&](int r) {
+        const int ox = r % TW, oy = (r / TW) % TH, nb = r / (TW * TH);
+        const int n = n0 + nb, gy = ty0 + oy, gx = tx0 + ox;
+        OutRow o;
+        o.ok = n < N && gy < H && gx < W;
+        o.y = ((long long)(n) * H + gy) * W * C + (long long)(gx) * C;
+        o.res = ((nb * xh + oy + 2) * xw + ox + 2) * CP;
+        return o;
+      },
+      [&](const OutRow& o, int co, float v0, float v1) {
+        if (!o.ok) return;
+        const float2 res = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(xs_ptr + o.res + co));
+        *reinterpret_cast<__nv_bfloat162*>(y + o.y + co) =
+            __floats2bfloat162_rn(fmaxf(v0 + res.x, 0.0f),
+                                  fmaxf(v1 + res.y, 0.0f));
       });
+  cp_async_wait_all();
 }
 
-template <int NG>
+template <int MT, int NT, int KS>
 int launch(const void* x, const void* w1, const void* b1, const void* w2,
-           const void* b2, void* y, int N, int H, int W, int C, int TH,
-           int TW, int CP, cudaStream_t stream) {
-  const size_t smem = smem_bytes(TH, TW, CP);
+           const void* b2, void* y, int N, int H, int W, int C,
+           const Plan& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_basic_block_kernel<NG>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      fused_basic_block_kernel<MT, NT, KS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return int(err);
-  const int tiles_y = (H + TH - 1) / TH;
-  const int tiles_x = (W + TW - 1) / TW;
-  dim3 grid(tiles_y * tiles_x, N);
-  fused_basic_block_kernel<NG><<<grid, kThreads, smem, stream>>>(
+  const int tiles_x = (W + p.tw - 1) / p.tw;
+  const int tiles_y = (H + p.th - 1) / p.th;
+  dim3 grid(tiles_y * tiles_x, (N + p.nb - 1) / p.nb);
+  fused_basic_block_kernel<MT, NT, KS><<<grid, kThreads, p.smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w1), static_cast<const float*>(b1),
       static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(b2),
-      static_cast<__nv_bfloat16*>(y), H, W, C, TH, TW, CP, tiles_x);
+      static_cast<__nv_bfloat16*>(y), N, H, W, C, p, tiles_x);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
+// The (MT, NT, KS) instantiations this library holds come from the build:
+// ops/fused_block.py (library) lists those of its launch plans as
+// EGONET_VARIANTS, a run of EGONET_VARIANT(MT, NT, KS), in a prelude that
+// ops/_build.py includes before this file.
+#ifndef EGONET_VARIANTS
+#error "EGONET_VARIANTS is undefined: build through egonet_tpu_torch/ops/_build.py"
+#endif
+
 extern "C" {
 
-// Dynamic shared memory one block needs for a (TH, TW) tile at row pitch
-// CP channels.
-long long egonet_fused_basic_block_smem(int TH, int TW, int CP) {
-  return (long long)smem_bytes(TH, TW, CP);
-}
-
-// Launch on `stream`; returns cudaGetLastError() (0 on success).  C must
-// be a multiple of 16, CP >= C a multiple of 16, all pointers 32-byte
-// aligned (the caller checks).
+// Launch on `stream` with the plan `p`; returns cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue for a plan the kernel cannot run or
+// this library does not hold.  All pointers must be 16-byte aligned (the
+// caller checks).
 int egonet_fused_basic_block(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* b2, void* y, int N,
-                             int H, int W, int C, int TH, int TW, int CP,
-                             void* stream) {
-  if (C % 16 != 0 || CP % 16 != 0 || CP < C || TH < 1 || TW < 1)
+                             int H, int W, int C, Plan p, void* stream) {
+  if (N < 1 || H < 1 || W < 1 || !plan_ok(p, C))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C % 48 == 0) return launch<3>(x, w1, b1, w2, b2, y, N, H, W, C, TH, TW, CP, s);
-  return launch<1>(x, w1, b1, w2, b2, y, N, H, W, C, TH, TW, CP, s);
+#define EGONET_VARIANT(MT_, NT_, KS_)                                      \
+  if (p.mt == MT_ && p.nt == NT_ && p.ks == KS_)                           \
+    return launch<MT_, NT_, KS_>(x, w1, b1, w2, b2, y, N, H, W, C, p, s);
+  EGONET_VARIANTS
+#undef EGONET_VARIANT
+  return int(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

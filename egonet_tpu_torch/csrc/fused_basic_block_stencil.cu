@@ -62,6 +62,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
 constexpr int kMaxWarps = 8;
@@ -77,10 +79,6 @@ struct Geometry {
   int xp;   // x ring row pitch per image, in positions
   int mp;   // mid ring row pitch per image, in positions
 };
-
-__host__ __device__ inline size_t align128(size_t b) {
-  return (b + 127) & ~size_t(127);
-}
 
 __host__ __device__ inline Geometry geometry(int TW) {
   Geometry g;
@@ -135,64 +133,6 @@ __host__ __device__ inline int stages_for(int TW, int NB, int C) {
 
 __device__ __forceinline__ int ring4(int r) { return (r + 8) & 3; }  // r >= -2
 __device__ __forceinline__ int ring3(int m) { return (m + 3) % 3; }  // m >= -1
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
-                                           bool valid) {
-  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zeroed
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// wait until at most stages - 2 copy groups are pending
-__device__ __forceinline__ void cp_async_wait_slab(int stages) {
-  if (stages >= 3)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a (16x16 bf16, row-major) * b (16x8 bf16, col-major), fp32
-__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Start copying K slab j (weight columns [48j, 48j + 48) of every output
-// channel) into a shared [C][kKSP] buffer at shared address `dst`.
-__device__ __forceinline__ void fetch_slab(unsigned dst,
-                                           const __nv_bfloat16* __restrict__ w,
-                                           int j, int C) {
-  constexpr int vec = kKS / 8;  // 16-byte vectors per row
-  const size_t k9 = size_t(9) * C;
-  for (int i = threadIdx.x; i < C * vec; i += blockDim.x) {
-    const int r = i / vec, v = i % vec;
-    cp_async16(dst + (r * kKSP + v * 8) * 2, w + r * k9 + j * kKS + v * 8,
-               true);
-  }
-}
 
 // Start copying x row r (columns tx0-2 .. tx0-2+XP-1 of images n0 ..
 // n0+NB-1) into the ring slot at shared address `slot`; positions outside
@@ -261,7 +201,8 @@ __device__ __forceinline__ void row_gemm(unsigned row0, unsigned row1,
 
     __syncthreads();  // every warp is done with the slab buffers
     for (int j = 0; j < stages - 1; ++j) {
-      if (j < n_slabs) fetch_slab(slabs + (j % stages) * slab_stride, w, j, C);
+      if (j < n_slabs)
+        fetch_slab<kKS>(slabs + (j % stages) * slab_stride, w, j, C);
       cp_async_commit();
     }
     int tap = 0, k0 = 0;  // K step s = tap * C/16 + k0/16
@@ -272,7 +213,7 @@ __device__ __forceinline__ void row_gemm(unsigned row0, unsigned row1,
       __syncthreads();
       const int jn = j + stages - 1;
       if (jn < n_slabs)
-        fetch_slab(slabs + (jn % stages) * slab_stride, w, jn, C);
+        fetch_slab<kKS>(slabs + (jn % stages) * slab_stride, w, jn, C);
       cp_async_commit();
       const unsigned sl = slabs + (j % stages) * slab_stride + b_lane;
 #pragma unroll

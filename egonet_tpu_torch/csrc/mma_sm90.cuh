@@ -1,0 +1,84 @@
+// Shared-memory tensor-core helpers for the port's Hopper (sm_90a) kernels:
+// cp.async copies into shared memory, ldmatrix fragment loads from
+// shared-space addresses, and the bf16 mma.sync.m16n8k16 with fp32
+// accumulators.  Included by fused_basic_block.cu and
+// fused_basic_block_stencil.cu; each builds into its own library, so the
+// helpers have internal linkage.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__host__ __device__ inline size_t align128(size_t b) {
+  return (b + 127) & ~size_t(127);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool valid) {
+  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zeroed
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// wait until at most stages - 2 copy groups are pending (stages 2 or 3)
+__device__ __forceinline__ void cp_async_wait_slab(int stages) {
+  if (stages >= 3)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// four 8x8 b16 matrices; lane l gives the row address of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16 bf16, row-major) * b (16x8 bf16, col-major), fp32
+__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Start copying K slab j of a tap-major [C][9C] bf16 weight matrix (columns
+// [KS*j, KS*j + KS) of every output channel) into a shared [C][KS + 8]
+// buffer at shared address `dst`, with every thread of the block.  A row
+// pitch of KS + 8 elements is an odd multiple of 16 bytes, so the 8 rows of
+// an ldmatrix phase hit distinct banks.
+template <int KS>
+__device__ __forceinline__ void fetch_slab(unsigned dst,
+                                           const __nv_bfloat16* __restrict__ w,
+                                           int j, int C) {
+  constexpr int vec = KS / 8;  // 16-byte vectors per row
+  constexpr int ksp = KS + 8;
+  const size_t k9 = size_t(9) * C;
+  for (int i = threadIdx.x; i < C * vec; i += blockDim.x) {
+    const int r = i / vec, v = i % vec;
+    cp_async16(dst + (r * ksp + v * 8) * 2, w + r * k9 + j * KS + v * 8,
+               true);
+  }
+}
+
+}  // namespace

@@ -17,13 +17,21 @@ What bounds it on the H100: per block of B crops it does 4*B*H*W*9*C^2
 operations and must move 4*B*H*W*C + 36*C^2 bytes (bf16 x in, y out, both
 weights).  At the W48 shapes (C/H = 48/64, 96/32, 192/16, 384/8) that is
 ~180 operations per byte at C=48 rising to ~1000 at C=384 — near or above
-the card's ~295 ops/byte ridge, so the tensor cores, not memory, are the
-bound, and the design spends its effort there: bf16 WMMA tensor-core
-fragments for both convs, the mid tile in shared memory (no round trip
-through device memory), and weights streamed from L2 in 16-deep K chunks.
-This first version keeps the garbage columns of its uniform-pitch GEMM
-rows and recomputes the conv1 halo per tile; wgmma, TMA and warp
-specialisation are later work (see PERF.md for its times and bound).
+the card's ~295 ops/byte ridge, so the tensor cores, not device memory, are
+the bound, and the design spends its effort on feeding them: the x tile,
+the mid tile and the weights (in K slabs, read from L2 once per thread
+block) sit in shared memory, every operand fragment is an ``ldmatrix``
+into a ``mma.sync`` from addresses fixed outside the K loop, and the GEMM
+rows are the tile's real positions only.  At C=384 the weights every block
+reads from L2 bind instead.  ``csrc/fused_basic_block.cu`` has the design;
+wgmma, TMA and weight multicast across clusters are later work (see
+PERF.md for its times and bound).
+
+The launch plan — tile, images per block, warp grid, K slab depth, slabs
+in flight and the shared-memory layout — is reckoned here (:func:`plan_for`)
+and passed to the kernel, which checks it against the layout it addresses.
+The kernel library instantiates exactly the (MT, NT, KS) variants of the
+plans it serves (:func:`library`), listed here and nowhere else.
 
 The wrapper takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel or raises.  ``fused_basic_block.launches``
@@ -33,6 +41,8 @@ counts kernel launches (and nothing else).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import zlib
 
 import numpy as np
 import torch
@@ -41,14 +51,21 @@ import torch.nn.functional as F
 from egonet_tpu_torch.ops import _build
 
 _LIB_NAME = "fused_basic_block"
-# output tile (TH, TW) per channel width, measured per W48 shape: tiles
-# that divide the maps; the 8x8 stage-4 map (C=384) is cut into 4 tiles
-# so a bucket of 32 crops launches 128 blocks rather than 64 (0.60 ->
-# 0.38 ms per launch on an H100, though each tile recomputes a wider
-# conv1 halo); 4x8 tiles at C=192 measured slower than 8x8
-_TILES = {48: (8, 16), 96: (8, 16), 192: (8, 8), 384: (4, 4)}
+# output tile (TH, TW, NB images per block, KS weight columns per K slab)
+# per channel width, measured per W48 shape (chip_smoke.py times the other
+# tiles of its ALT_TILES beside it)
+_TILES = {48: (16, 32, 1, 144), 96: (16, 16, 1, 96), 192: (8, 8, 1, 96),
+          384: (4, 4, 1, 48)}
 _SMEM_LIMIT = 232448          # dynamic shared memory one block may use
-_PITCH: dict = {}
+_WARPS = 8
+_MAX_C = 64 * _WARPS          # widest channel count 8 warps cover
+# what a plan may take, per N tiles per warp: (most M tiles per warp and
+# pass, which the accumulators' registers bound; K slab depths)
+_PLAN_LIMITS = {3: (6, (48, 96, 144)), 1: (2, (48,)), 2: (2, (48,)),
+                4: (2, (48,))}
+_PLANS: dict = {}
+# channel width -> (plan, its _PlanStruct, entry point) of the default path
+_LAUNCHERS: dict = {}
 
 
 # ---------------------------------------------------------------------------
@@ -125,36 +142,134 @@ def fused_basic_block_reference(x, w1, b1, w2, b2) -> torch.Tensor:
 # the kernel's wrapper
 # ---------------------------------------------------------------------------
 
-def _lib():
-    lib = _build.load(_LIB_NAME)
-    fn = lib.egonet_fused_basic_block
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.egonet_fused_basic_block_smem.argtypes = [ctypes.c_int] * 3
-        lib.egonet_fused_basic_block_smem.restype = ctypes.c_longlong
-    return lib
+def _align128(n: int) -> int:
+    return (n + 127) // 128 * 128
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """One launch plan of the kernel at width ``c``: fields ``th`` ..
+    ``smem`` are the kernel's ``Plan`` (same names, same order)."""
+    c: int
+    th: int           # output tile rows
+    tw: int           # output tile columns
+    nb: int           # images per block
+    cp: int           # shared row pitch in channels (C + 8)
+    mt: int           # M tiles (16 GEMM rows) per warp and pass
+    nt: int           # N tiles (16 output channels) per warp
+    ks: int           # K slab depth (weight columns per slab)
+    wm: int           # warps along M
+    wn: int           # warps along N
+    stages: int       # weight slab buffers (stages - 1 slabs in flight)
+    mid_off: int      # byte offset of the mid tile in shared memory
+    slab_off: int     # byte offset of the first weight slab
+    slab_bytes: int   # bytes of one slab buffer
+    smem: int         # dynamic shared memory of one block, bytes
+
+
+_PLAN_FIELDS = [f.name for f in dataclasses.fields(TilePlan)][1:]
+
+
+class _PlanStruct(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in _PLAN_FIELDS]
+
+
+def _nt_for(c: int) -> int:
+    """N tiles per warp: 3 where the C/16 tiles split into groups of 3 over
+    at most 8 warps (every W48 width), else 4, 2 or 1 likewise, else the
+    fewest per warp that 8 warps cover."""
+    n16 = c // 16
+    for nt in (3, 4, 2, 1):
+        if n16 % nt == 0 and n16 // nt <= _WARPS:
+            return nt
+    for nt in (1, 2, 3, 4):
+        if _cdiv(n16, nt) <= _WARPS:
+            return nt
+    raise ValueError(f"channel width {c} exceeds the kernel's {_MAX_C}")
+
+
+def plan_for(c: int, tile=None) -> TilePlan:
+    """The launch plan at channel width ``c`` for ``tile`` = (TH, TW, NB) or
+    (TH, TW, NB, KS) (default :func:`tile_for`): the warp grid, the M tiles
+    each warp holds per pass (all of its share where ``_PLAN_LIMITS``
+    allows, passes balanced otherwise), and the K slab depth (KS, else the
+    first of the limits' that fits) with the most slab buffers (3, else 2)
+    that fit in one block's shared memory.  Raises if none fits."""
+    tile = tuple(tile or tile_for(c))
+    key = (c,) + tile
+    th, tw, nb = tile[:3]
+    if key in _PLANS:
+        return _PLANS[key]
+    if c % 16 or min(th, tw, nb) < 1:
+        raise ValueError(f"no plan for C={c}, tile {th}x{tw}x{nb}")
+    nt = _nt_for(c)
+    wn = _cdiv(c // 16, nt)
+    wm = _WARPS // wn
+    mt_max, slab_depths = _PLAN_LIMITS[nt]
+    slots = _cdiv(_cdiv(nb * (th + 2) * (tw + 2), 16), wm)   # of conv 1
+    mt = _cdiv(slots, _cdiv(slots, mt_max))
+    cp = c + 8
+    xs = _align128(nb * (th + 4) * (tw + 4) * cp * 2)
+    mid = _align128(nb * (th + 2) * (tw + 2) * cp * 2)
+    for ks in tile[3:] or slab_depths:
+        if ks not in slab_depths or (9 * c) % ks:
+            continue
+        slab = _align128(c * (ks + 8) * 2)
+        for stages in (3, 2):
+            smem = xs + mid + stages * slab
+            if smem <= _SMEM_LIMIT:
+                plan = TilePlan(c, th, tw, nb, cp, mt, nt, ks, wm, wn,
+                                stages, xs, xs + mid, slab, smem)
+                _PLANS[key] = plan
+                return plan
+    raise ValueError(f"a {th}x{tw} tile of {nb} images at C={c} exceeds "
+                     "shared memory")
+
+
+def tile_fits(c: int, tile) -> bool:
+    """Whether a (TH, TW, NB[, KS]) tile at width c has a plan."""
+    try:
+        plan_for(c, tile)
+    except ValueError:
+        return False
+    return True
+
+
+def library(plans=None):
+    """The kernel library as ``_build`` takes it, (name, source, prelude):
+    ``csrc/fused_basic_block.cu`` instantiating the (MT, NT, KS) variants
+    of ``plans`` and no others.  By default, those of every width's default
+    plan (what :func:`fused_basic_block` launches); a library of other
+    plans (a tile sweep) is named by its variant list."""
+    default = plans is None
+    if default:
+        plans = [plan_for(c) for c in range(16, _MAX_C + 1, 16)
+                 if tile_fits(c, None)]
+    variants = sorted({(p.mt, p.nt, p.ks) for p in plans})
+    prelude = "#define EGONET_VARIANTS " + " ".join(
+        f"EGONET_VARIANT({mt}, {nt}, {ks})" for mt, nt, ks in variants) + "\n"
+    name = _LIB_NAME if default else (
+        f"{_LIB_NAME}_{zlib.crc32(prelude.encode()):08x}")
+    return name, _LIB_NAME, prelude
+
+
+def _launcher(plan: TilePlan, lib):
+    """(plan, its ctypes struct, the entry point of ``lib``): what
+    :func:`_launch` takes."""
+    fn = _build.load(lib).egonet_fused_basic_block
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [_PlanStruct, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return plan, _PlanStruct(*(getattr(plan, f) for f in _PLAN_FIELDS)), fn
 
 
 def tile_for(c: int):
-    """The (TH, TW) output tile the kernel uses at channel width ``c``."""
-    return _TILES.get(c, (8, 8))
-
-
-def _row_pitch(lib, c: int, th: int, tw: int) -> int:
-    """Shared-memory row pitch in channels: the first of C, C+16, ...
-    whose byte pitch is an odd multiple of 32 modulo 128 (the 16 rows of a
-    WMMA fragment load then spread over the banks) and that fits; else C."""
-    key = (c, th, tw)
-    if key not in _PITCH:
-        fits = [cp for cp in range(c, c + 64, 16)
-                if lib.egonet_fused_basic_block_smem(th, tw, cp) <= _SMEM_LIMIT]
-        if not fits:
-            raise ValueError(f"a {th}x{tw} tile at C={c} exceeds shared memory")
-        good = [cp for cp in fits if (cp * 2) % 128 in (32, 96)]
-        _PITCH[key] = good[0] if good else fits[0]
-    return _PITCH[key]
+    """The (TH, TW, NB, KS) tile the kernel uses at channel width ``c``."""
+    return _TILES.get(c, (8, 8, 1, 48))
 
 
 def _check(x, w1, b1, w2, b2):
@@ -184,22 +299,28 @@ def fused_basic_block(x, w1, b1, w2, b2) -> torch.Tensor:
     x [N, H, W, C] bf16 contiguous; w1, w2 [C, 3, 3, C] bf16 (folded,
     tap-major); b1, b2 [C] fp32.  A CPU tensor goes through
     :func:`fused_basic_block_reference`; a CUDA tensor launches the kernel
-    on the current stream or raises."""
+    with the plan of :func:`tile_for` on the current stream or raises."""
     if x.device.type == "cpu":
         return fused_basic_block_reference(x, w1, b1, w2, b2)
     _check(x, w1, b1, w2, b2)
-    lib = _lib()
+    c = x.shape[3]
+    launcher = _LAUNCHERS.get(c)
+    if launcher is None:
+        launcher = _LAUNCHERS[c] = _launcher(plan_for(c), library())
+    return _launch(x, w1, b1, w2, b2, *launcher)
+
+
+def _launch(x, w1, b1, w2, b2, plan, struct, fn) -> torch.Tensor:
+    """Launch the kernel on checked CUDA operands with ``plan`` (its
+    ``struct``) through ``fn``, a library's entry point."""
     n, h, w, c = x.shape
-    th, tw = tile_for(c)
-    cp = _row_pitch(lib, c, th, tw)
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.egonet_fused_basic_block(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), y.data_ptr(), n, h, w, c, th, tw, cp, stream)
+    err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+             b2.data_ptr(), y.data_ptr(), n, h, w, c, struct, stream)
     if err != 0:
         raise RuntimeError(f"fused_basic_block launch failed: CUDA error {err}"
-                           f" (N={n} H={h} W={w} C={c} tile={th}x{tw})")
+                           f" (N={n} H={h} W={w} C={c} plan={plan})")
     fused_basic_block.launches += 1
     return y
 
