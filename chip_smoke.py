@@ -19,9 +19,14 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    built into a library of their own, which the port does not load).
 3. Kernel phase, row-streaming (stencil) fused BasicBlock: the same checks
    at the same four shapes and at three odd ones (two from step 2 and one
-   whose width no column tile divides), timed beside its plain version,
-   the cuDNN convs, its bound, the tiled kernel and other column tiles;
-   then ``probe_wide_tile()``, whose result is printed.
+   whose width no column tile divides), with its launch plan printed
+   (cluster size K, tile TW x NB, weights resident or streamed, warps,
+   shared memory, clusters the card holds at once), timed beside its plain
+   version, the cuDNN convs, its bound and the tiled kernel, and every
+   other plan of STENCIL_SWEEP checked and timed beside the chosen one
+   (their variants built into a library of their own); the SASS of the
+   stencil library is searched for weight copies inside each variant's
+   row loop; then ``probe_wide_tile()``, whose result is printed.
 4. Slice phase: ``EgoNet(demo_config(), device="cuda")`` — full W48, bf16,
    seeded random weights, LS stats anchored at a placed cuboid — runs 4
    synthetic 375x1242 frames with 6 boxes each through dispatch_annot_dict
@@ -43,8 +48,8 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    GT-box and submission paths: every instance gets a 17-field line whose
    fields other than alpha and rot_y equal the input line's bytes, with
    finite angles.
-7. Prints one JSON line per kernel shape and phase, the tiled kernel's
-   earlier time per forward (a past figure from PERF.md, labelled so), the
+7. Prints one JSON line per kernel shape and phase, both kernels' earlier
+   times per forward (past figures from PERF.md, labelled so), the
    {"kernels": [...]} line (every number in it measured or, for
    ``bound_ms``, reckoned in this run), the card line, and last
    {"ok": true, "device": {...}}.
@@ -55,6 +60,7 @@ Any failure raises (non-zero exit).
 
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -79,17 +85,33 @@ ALT_TILES = {48: ((8, 16, 1, 48), (8, 16, 1, 144), (16, 16, 1, 144),
                    (8, 16, 1, 48), (4, 8, 2, 96)),
              384: ((2, 8, 1, 48), (4, 8, 1, 48), (8, 4, 1, 48),
                    (2, 4, 1, 48), (2, 4, 2, 48))}
-# the tiled kernel's time per W48 forward at 32 crops before its redesign
-# (WMMA fragments loaded from L2): a past figure, printed apart from the
-# kernels line
+# both kernels' times per W48 forward at 32 crops before their redesigns
+# (the tiled one loading WMMA fragments from L2; the stencil streaming both
+# weight matrices through shared memory every row step): past figures,
+# printed apart from the kernels line
 EARLIER = {"fused_basic_block_ms_per_forward": 24.07,
-           "source": "PERF.md, section 6: the WMMA version on an H100 80GB "
-                     "HBM3 at 700.00 W"}
+           "fused_basic_block_stencil_ms_per_forward": 97.40,
+           "source": "PERF.md, section 6: the earlier designs on an H100 "
+                     "80GB HBM3 at 700.00 W"}
 # the stencil's odd shapes (C, H, W, B): those above and a width that no
 # column tile divides
 STENCIL_EXTRA = ((32, 64, 64, 4), (64, 10, 10, 3), (48, 12, 37, 5))
-# other (TW, NB) column tiles of the stencil, timed at each W48 shape
-STENCIL_ALT_TILES = ((14, 1), (16, 1), (30, 1), (14, 2))
+# other stencil plans (TW, RH, NB, K, WM1, WM2, WN[, KS]: column tile, rows
+# per step, images and blocks per cluster, warps along M of conv1 and of
+# conv2, warps along N[, streamed slab depth]), checked and timed at each
+# W48 shape beside the chosen one (st.tile_for): weights streamed without a
+# cluster, other clusters, tiles, rows per step and warp grids
+STENCIL_SWEEP = {
+    48: ((8, 1, 1, 1, 1, 1, 3, 48), (8, 1, 1, 1, 1, 1, 3),
+         (8, 4, 1, 1, 1, 1, 3), (8, 4, 1, 1, 2, 2, 1), (16, 4, 1, 1, 1, 1, 3)),
+    96: ((8, 1, 1, 1, 1, 1, 3, 48), (8, 1, 1, 4, 1, 1, 3),
+         (8, 1, 1, 2, 1, 1, 3), (16, 3, 1, 2, 1, 1, 3),
+         (16, 3, 1, 2, 2, 2, 1)),
+    192: ((8, 1, 1, 8, 1, 1, 3, 96), (8, 1, 1, 8, 1, 1, 1),
+          (16, 1, 1, 8, 1, 1, 3), (16, 1, 1, 8, 1, 1, 1),
+          (8, 2, 1, 8, 2, 1, 1)),
+    384: ((8, 1, 1, 8, 1, 1, 3, 96), (8, 2, 1, 8, 1, 1, 3, 96),
+          (8, 4, 1, 8, 1, 1, 3, 96), (8, 3, 1, 8, 2, 2, 1, 96))}
 # fused blocks per HRNet-W48 forward at each width (104 in all)
 PER_FORWARD = {48: 32, 96: 32, 192: 28, 384: 12}
 BATCH = 32
@@ -109,7 +131,6 @@ def _card_line():
 def _ptxas_summary(log):
     """One "<template args>: N registers, S bytes spilled" item per kernel
     variant in nvcc's -Xptxas -v output."""
-    import re
     items, name, spill = [], "?", "?"
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -248,48 +269,129 @@ def kernel_phase(torch, fb, sweep, sweep_lib):
     return rows
 
 
-def sass_report(_build, fb, names):
+def _sass_functions(cuobjdump, path):
+    """{kernel variant: [(address, instruction)]} of a built library
+    (cuobjdump -sass)."""
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    funcs, cur = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            cur = funcs.setdefault(ln.split("Function :")[1].strip(), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s*(.*?)\s*;", ln)
+        if cur is not None and m:
+            cur.append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def _opcode(text):
+    tokens = text.split()
+    if tokens and tokens[0].startswith("@"):
+        tokens = tokens[1:]
+    return tokens[0] if tokens else ""
+
+
+def _row_loop(insts):
+    """What one stencil variant's row loops hold (the outermost backward
+    branches around HMMAs: one per warp role, conv1's and conv2's): weight
+    copies (LDGSTS with no zero-fill predicate operand: cp_async16_all),
+    activation copies (LDGSTS ending in the predicate that zero-fills
+    positions outside the image: cp_async16), LDG (the residual), HMMA."""
+    hmma = [a for a, t in insts if _opcode(t).startswith("HMMA")]
+    loops = []
+    for a, t in insts:
+        if _opcode(t).startswith("BRA"):
+            m = re.search(r"0x([0-9a-f]+)", t.split("BRA", 1)[1])
+            if m and int(m.group(1), 16) < a and any(
+                    int(m.group(1), 16) <= h <= a for h in hmma):
+                loops.append((int(m.group(1), 16), a))
+    outer = sorted({(lo, hi) for lo, hi in loops
+                    if not any(l2 <= lo and hi <= h2 and (l2, h2) != (lo, hi)
+                               for l2, h2 in loops)})
+    if not outer:
+        return None
+    inside = [t for a, t in insts if any(lo <= a <= hi for lo, hi in outer)]
+    copies = [t for t in inside if _opcode(t).startswith("LDGSTS")]
+    zfill = [t for t in copies if re.search(r",\s*!?P\d+$", t)]
+    return {"spans": [[hex(lo), hex(hi)] for lo, hi in outer],
+            "weight_copies": len(copies) - len(zfill),
+            "x_copies": len(zfill),
+            "LDG": sum(_opcode(t).split(".")[0] == "LDG" for t in inside),
+            "HMMA": sum(_opcode(t).startswith("HMMA") for t in inside),
+            "HMMA_outside": len(hmma) - sum(
+                _opcode(t).startswith("HMMA") for t in inside)}
+
+
+def sass_report(_build, fb, st):
     """Per library, counts of the SASS opcodes that show how the fused
     kernels feed their tensor cores (cuobjdump -sass of the built library):
     LDSM (ldmatrix), HMMA (mma), LDS (other shared loads), LD / LDG
-    (generic and global loads), BAR; and 20 instructions of the tiled
-    kernel's K loop, from its first HMMA, in the variant of the C=96
-    plan."""
+    (generic and global loads), LDGSTS (cp.async), BAR; 20 instructions of
+    the tiled kernel's K loop, from its first HMMA, in the variant of the
+    C=96 plan; and, per stencil variant, what its row loop holds.  Fails if
+    the row loop of a resident-weight variant copies weights."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     plan = fb.plan_for(96)
     variant = f"ILi{plan.mt}ELi{plan.nt}ELi{plan.ks}E"
-    out, excerpt = {}, []
-    for name in names:
-        sass = subprocess.run(
-            [cuobjdump, "-sass", _build._paths(name)[1]], capture_output=True,
-            text=True, check=True, timeout=300).stdout
-        count, in_variant = {}, False
-        for ln in sass.splitlines():
-            if "Function :" in ln:
-                in_variant = name == "fused_basic_block" and variant in ln
-            if not ln.strip().startswith("/*") or "*/" not in ln:
-                continue
-            text = ln.split("*/")[1].split("/*")[0].strip()
-            if not text:
-                continue
-            tokens = text.split()
-            if tokens and tokens[0].startswith("@"):
-                tokens = tokens[1:]
-            base = tokens[0].split(".")[0]
-            if base in ("LDSM", "HMMA", "LDS", "LD", "LDG", "BAR"):
-                count[base] = count.get(base, 0) + 1
-            if in_variant and (excerpt or base == "HMMA") and \
-                    len(excerpt) < 20:
-                excerpt.append(text)
+    out, excerpt, loops = {}, [], {}
+    for name in ("fused_basic_block", "fused_basic_block_stencil"):
+        count = {}
+        for fn, insts in _sass_functions(cuobjdump,
+                                         _build._paths(name)[1]).items():
+            for _, text in insts:
+                base = _opcode(text).split(".")[0]
+                if base in ("LDSM", "HMMA", "LDS", "LD", "LDG", "LDGSTS",
+                            "BAR"):
+                    count[base] = count.get(base, 0) + 1
+                if (name == "fused_basic_block" and variant in fn
+                        and (excerpt or base == "HMMA")
+                        and len(excerpt) < 20):
+                    excerpt.append(text)
+            if name == "fused_basic_block_stencil" and "stencil" in fn:
+                args = tuple(int(v) for v in re.findall(r"Li(\d+)E", fn))
+                loops[args] = _row_loop(insts)
         out[name] = count
-    return {"counts": out, "tiled_k_loop_excerpt": {
-        "variant": f"<{plan.mt},{plan.nt},{plan.ks}>", "sass": excerpt}}
+    report = {"counts": out, "tiled_k_loop_excerpt": {
+        "variant": f"<{plan.mt},{plan.nt},{plan.ks}>", "sass": excerpt},
+        "stencil_row_loops": {f"<{','.join(map(str, k))}>": v
+                              for k, v in sorted(loops.items())}}
+    for c, _ in W48_SHAPES:
+        p = st.plan_for(c)
+        loop = loops.get(st._variant(p))
+        assert loop is not None, (c, sorted(loops))
+        assert loop["HMMA_outside"] == 0, (c, loop)
+        if p.resident:
+            assert loop["weight_copies"] == 0 and loop["x_copies"] > 0, \
+                (c, loop)
+    return report
 
 
-def stencil_kernel_phase(torch, fb, st):
-    """Check the stencil at the odd shapes, check and time it at every W48
-    shape beside the tiled kernel, the plain version and cuDNN; run the
-    probe."""
+def stencil_sweep(st):
+    """{C: [plan]} of the STENCIL_SWEEP plans that fit, other than the
+    chosen one."""
+    return {c: [st.plan_for(c, t) for t in STENCIL_SWEEP[c]
+                if st.tile_fits(c, t) and st.plan_for(c, t) != st.plan_for(c)]
+            for c, _ in W48_SHAPES}
+
+
+def _plan_name(plan):
+    return "x".join(map(str, plan.tile))
+
+
+def _plan_summary(st, plan, lib):
+    return {"tile": list(plan.tile), "K": plan.k, "TW": plan.tw,
+            "NB": plan.nb, "weights": "resident" if plan.resident
+            else f"streamed, slabs of {plan.ks} x {plan.stages}",
+            "warps": plan.warps, "smem": plan.smem,
+            "max_active_clusters": st.max_clusters(plan, lib)}
+
+
+def stencil_kernel_phase(torch, fb, st, sweep, sweep_lib):
+    """Check the stencil at the odd shapes; check and time it at every W48
+    shape beside the tiled kernel, the plain version and cuDNN, with every
+    plan of ``sweep`` (launched from ``sweep_lib``) checked and timed
+    beside the chosen one; run the probe."""
     rows = []
     g = torch.Generator(device="cuda").manual_seed(1)
     for c, h, w, batch in STENCIL_EXTRA:
@@ -302,8 +404,10 @@ def stencil_kernel_phase(torch, fb, st):
     for c, h in W48_SHAPES:
         x, (w1, b1, w2, b2) = _block_inputs(torch, fb, g, c, h, BATCH)
 
-        def kernel(tile=None):
-            return st.fused_basic_block_stencil(x, w1, b1, w2, b2, tile=tile)
+        def kernel(launcher=None):
+            if launcher is None:
+                return st.fused_basic_block_stencil(x, w1, b1, w2, b2)
+            return st._launch(x, w1, b1, w2, b2, *launcher)
 
         def plain():
             return st.fused_basic_block_reference(x, w1, b1, w2, b2)
@@ -313,10 +417,9 @@ def stencil_kernel_phase(torch, fb, st):
 
         library = _library_block(torch, x, w1, b1, w2, b2)
         ref = plain()
-        for tile in (None,) + STENCIL_ALT_TILES:
-            if tile is not None and not st.tile_fits(c, tile):
-                continue
-            y = kernel(tile)
+        alt = [(p, st._launcher(p, sweep_lib)) for p in sweep[c]]
+        for launcher in [None] + [a for _, a in alt]:
+            y = kernel(launcher)
             torch.cuda.synchronize()
             torch.testing.assert_close(y.float(), ref.float(), atol=5e-2,
                                        rtol=2e-2)
@@ -326,16 +429,16 @@ def stencil_kernel_phase(torch, fb, st):
         assert torch.isfinite(y.float()).all()
         ops_ms, bytes_ms = _bound(c, h, h)
         row = {"shape": {"C": c, "H": h, "W": h, "B": BATCH},
-               "tile": list(st.DEFAULT_TILE),
+               "plan": _plan_summary(st, st.plan_for(c), st.library()),
                "max_abs_err": err,
                "ms": _time_ms(torch, kernel),
                "plain_ms": _time_ms(torch, plain, iters=5),
                "library_ms": _time_ms(torch, library),
                "tiled_ms": _time_ms(torch, tiled),
-               "alt_tiles_ms": {f"{tw}x{nb}": _time_ms(
-                   torch, lambda t=(tw, nb): kernel(t), iters=10)
-                   for tw, nb in STENCIL_ALT_TILES
-                   if st.tile_fits(c, (tw, nb))},
+               "alt_plans_ms": {_plan_name(p): _time_ms(
+                   torch, lambda a=a: kernel(a), iters=10) for p, a in alt},
+               "alt_plans": {_plan_name(p): _plan_summary(st, p, sweep_lib)
+                             for p, _ in alt},
                "ops_ms": ops_ms, "bytes_ms": bytes_ms}
         row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
         print(json.dumps({"fused_basic_block_stencil": row}), flush=True)
@@ -714,18 +817,18 @@ def main() -> int:
     full_precision_fp32()
     sweep = sweep_plans(fb)
     sweep_lib = fb.library([p for plans in sweep.values() for _, p in plans])
+    ssweep = stencil_sweep(st)
+    ssweep_lib = st.library([p for plans in ssweep.values() for p in plans])
     t0 = time.perf_counter()
-    _build.build([fb.library(), sweep_lib, "fused_basic_block_stencil"])
+    _build.build([fb.library(), sweep_lib, st.library(), ssweep_lib])
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, info in _build.BUILD_INFO.items():
         print(f"[{name}] built in {info['seconds']:.1f} s; "
               + "; ".join(_ptxas_summary(info["log"])), flush=True)
 
-    print(json.dumps({"sass": sass_report(
-        _build, fb, ["fused_basic_block", "fused_basic_block_stencil"])}),
-        flush=True)
+    print(json.dumps({"sass": sass_report(_build, fb, st)}), flush=True)
     rows = kernel_phase(torch, fb, sweep, sweep_lib)
-    srows = stencil_kernel_phase(torch, fb, st)
+    srows = stencil_kernel_phase(torch, fb, st, ssweep, ssweep_lib)
     result, model, annot, ry, ry_u = slice_phase(torch, np, fb, st)
     print(json.dumps({"slice": result}), flush=True)
     sresult = stencil_slice_phase(torch, np, fb, st, model, annot, ry, ry_u)

@@ -1,9 +1,10 @@
 // Shared-memory tensor-core helpers for the port's Hopper (sm_90a) kernels:
 // cp.async copies into shared memory, ldmatrix fragment loads from
-// shared-space addresses, and the bf16 mma.sync.m16n8k16 with fp32
-// accumulators.  Included by fused_basic_block.cu and
-// fused_basic_block_stencil.cu; each builds into its own library, so the
-// helpers have internal linkage.
+// shared-space addresses, the bf16 mma.sync.m16n8k16 with fp32
+// accumulators, and (used by the stencil kernel) thread-block cluster
+// barriers and distributed shared memory stores.  Included by
+// fused_basic_block.cu and fused_basic_block_stencil.cu; each builds into
+// its own library, so the helpers have internal linkage.
 
 #pragma once
 
@@ -79,6 +80,65 @@ __device__ __forceinline__ void fetch_slab(unsigned dst,
     cp_async16(dst + (r * ksp + v * 8) * 2, w + r * k9 + j * KS + v * 8,
                true);
   }
+}
+
+// 16 bytes from global to shared memory, no zero fill: its SASS form (an
+// LDGSTS without cp_async16's trailing zero-fill predicate) tells a weight
+// copy from an activation copy
+__device__ __forceinline__ void cp_async16_all(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+
+// wait until at most N copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// two 8x8 b16 matrices; lanes 0-15 give the row addresses (lane l of
+// matrix l / 8)
+__device__ __forceinline__ void ldsm_x2(unsigned addr, unsigned (&r)[2]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
+// ---- thread block clusters and distributed shared memory ----
+
+// this block's rank in its cluster
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the shared::cluster address of shared address `addr` in block `rank`
+// of the cluster
+__device__ __forceinline__ unsigned map_shared_rank(unsigned addr,
+                                                    unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes into (possibly another block's) shared memory of the cluster
+__device__ __forceinline__ void st_cluster_v4(unsigned addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w));
+}
+
+// every thread of every block of the cluster arrives; the writes before
+// it (shared, distributed shared and global) are visible after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
 }
 
 }  // namespace
