@@ -28,7 +28,8 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    stencil library is searched for weight copies inside each variant's
    row loop; then ``probe_wide_tile()``, whose result is printed.
 4. Slice phase: ``EgoNet(demo_config(), device="cuda")`` — full W48, bf16,
-   seeded random weights, LS stats anchored at a placed cuboid — runs 4
+   seeded random weights, the precision harness's LS stats
+   (``precision._plausible_ls_stats``: cuboids near a placed one) — runs 4
    synthetic 375x1242 frames with 6 boxes each through dispatch_annot_dict
    -> finalize -> post_process, writing KITTI txts to a temp dir.  The
    kernel launch counts are reset just before and read just after: the
@@ -40,15 +41,35 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    "1")``: exactly 104 stencil launches and 0 tiled ones per forward,
    median |d ry| < 0.5 deg against both the tiled and the unfused paths,
    steady-state crops/s beside the tiled path's.
-6. CLI phase, stencil on (EGONET_PALLAS_STENCIL=1): writes a small KITTI
-   root (4 frames of 375x1242 as PNGs from the zlib writer below, whose
-   rows cycle through all five PNG filters; labels, calibrations, detector
-   txts, LS.npy), checks the port's PNG reader against the written pixels,
-   and runs ``egonet_tpu_torch.tools.inference.main(cfgs=...)`` on the
-   GT-box and submission paths: every instance gets a 17-field line whose
-   fields other than alpha and rot_y equal the input line's bytes, with
-   finite angles.
-7. Prints one JSON line per kernel shape and phase, both kernels' earlier
+6. Profile phase: ``torch.profiler`` over 3 steady batches of the slice
+   through the tiled kernel and 1 through the stencil
+   (``utils/profiling.trace`` / ``summarize_trace``): device ms per facade
+   span (``profiling.SPANS``) and per kernel category, the top 10 kernels,
+   the device's idle share and longest gaps, the untraced time of the same
+   batches (CUDA events); fails unless the trace counts 104 fused launches
+   per forward, as the wrapper's counter does, and the spans' device ms
+   sum to within 15% of the device's busy time.
+7. Fixture phase: the full-width W48 harness (``precision.harness_*``) at
+   seeds 0 and 1 against the JAX package's fp32 outputs in
+   ``tests/data/torch_w48_fixture.npz`` (kpts, angles, and the trunk's
+   well-conditioned outputs: the head's logits and the heatmaps' RMS):
+   fp32 with TF32 off, bf16 through the tiled kernel, bf16 through the
+   stencil (bars below and in the phase's line).
+8. CLI phase, stencil on (EGONET_PALLAS_STENCIL=1): writes a small KITTI
+   root (4 frames of 375x1242 as PNGs from the port's writer,
+   ``data/png.encode``, whose rows cycle through all five PNG filters;
+   labels, calibrations, detector txts, LS.npy), checks the port's PNG
+   reader against the written pixels, and runs
+   ``egonet_tpu_torch.tools.inference.main(cfgs=...)`` on the GT-box and
+   submission paths: every instance gets a 17-field line whose fields
+   other than alpha and rot_y equal the input line's bytes, with finite
+   angles.  Then the evaluator phase: the port's Python evaluator and the
+   C++ binary score that submission, and their R40 lines must be equal.
+9. Bench phase (``tools/bench.py``): the device program at batch 32, 128
+   and 384 (median of 5 windows, with min and max), FLOPs per crop, MFU,
+   the e2e loop, H2D rate.  Drift phase (``tools/precision_drift.py``):
+   bf16 against fp32 through the default kernel.
+10. Prints one JSON line per kernel shape and phase, both kernels' earlier
    times per forward (past figures from PERF.md, labelled so), the
    {"kernels": [...]} line (every number in it measured or, for
    ``bound_ms``, reckoned in this run), the card line, and last
@@ -61,12 +82,10 @@ Any failure raises (non-zero exit).
 import json
 import os
 import re
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 
 W48_SHAPES = ((48, 64), (96, 32), (192, 16), (384, 8))
 # checked only (not timed): a W32 width, whose C is no multiple of 48 (the
@@ -115,17 +134,21 @@ STENCIL_SWEEP = {
 # fused blocks per HRNet-W48 forward at each width (104 in all)
 PER_FORWARD = {48: 32, 96: 32, 192: 28, 384: 12}
 BATCH = 32
+# the fixture phase's fp32 bars: the random-weight W48 saturates most of
+# the head's sigmoids and the rest come from logits that cancel large
+# terms, so fp32 rounding alone moves a few points by hundredths of a px
+# (tests/test_torch_precision.py: the JAX fp32 fixture lies up to 0.041 px
+# from the port's fp64 forward, the port's CPU fp32 0.059 px from it)
+FIXTURE_FP32_KPTS_PX = 0.1
+FIXTURE_FP32_RY_RAD = 2e-3
+# the trunk's well-conditioned outputs (the head's logits, the heatmaps'
+# RMS), relative L2 gap per instance: fp32 as on the CPU (port against JAX
+# 2.8e-6 there; one wrong channel pair in one block gives 4.6e-3), bf16 a
+# bar for gross faults only (bf16 rounding alone gives ~1e-2 on the CPU)
+FIXTURE_FP32_REL, FIXTURE_BF16_REL = 2e-5, 5e-2
 PEAK_BF16 = 989e12          # H100 SXM dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bytes/s
 N_FRAMES, N_BOXES = 4, 6
-
-
-def _card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def _ptxas_summary(log):
@@ -473,19 +496,6 @@ def _frames(np):
     return annot
 
 
-def _anchored_ls_stats(np, cb):
-    """LS stats that decode the random network's outputs into a cuboid
-    near a placed one (what a trained LS.npy does); a random cuboid makes
-    the rigid fit ill-conditioned."""
-    box = cb.construct_box_3d(3.9, 1.5, 1.7)
-    rel = box[:, 1:] - box[:, :1]
-    return {"mean_in": np.tile([600.0, 180.0], 33)[None].astype(np.float32),
-            "std_in": np.full((1, 66), 150.0, np.float32),
-            "mean_out": (cb.rot_y_matrix(0.9) @ rel).T.reshape(1, -1)
-            .astype(np.float32),
-            "std_out": np.full((1, 96), 0.05, np.float32)}
-
-
 def _drive(torch, model, annot, fb, st, out_dir):
     """One batch through dispatch -> finalize -> post_process, with both
     kernels' launch counts set to 0 just before and read just after.
@@ -533,13 +543,13 @@ def slice_phase(torch, np, fb, st):
     """The W48 slice through the tiled kernel.  Returns (result, model,
     annot, ry of the tiled path, ry of the unfused path)."""
     from egonet_tpu_torch.config import demo_config
-    from egonet_tpu_torch.data import cuboid as cb
     from egonet_tpu_torch.models.egonet import EgoNet
+    from egonet_tpu_torch.precision import _plausible_ls_stats
 
     t0 = time.perf_counter()
     model = EgoNet(demo_config(), device="cuda")
     assert model.dtype == torch.bfloat16
-    model.load_state(ls_stats=_anchored_ls_stats(np, cb))
+    model.load_state(ls_stats=_plausible_ls_stats())
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     annot = _frames(np)
@@ -610,34 +620,6 @@ def stencil_slice_phase(torch, np, fb, st, model, annot, ry_tiled,
 # the CLI phase: a small KITTI directory written here
 # ---------------------------------------------------------------------------
 
-def _png_bytes(np, img):
-    """A PNG of an RGB uint8 image whose rows cycle through the five row
-    filters (None, Sub, Up, Average, Paeth)."""
-    h, w, _ = img.shape
-    rows = img.reshape(h, -1).astype(np.int32)
-    data, prev = bytearray(), np.zeros_like(rows[0])
-    for y in range(h):
-        kind, r = y % 5, rows[y]
-        a = np.concatenate([np.zeros(3, np.int32), r[:-3]])
-        c = np.concatenate([np.zeros(3, np.int32), prev[:-3]])
-        pa, pb, pc = np.abs(prev - c), np.abs(a - c), np.abs(a + prev - 2 * c)
-        paeth = np.where((pa <= pb) & (pa <= pc), a,
-                         np.where(pb <= pc, prev, c))
-        pred = (0, a, prev, (a + prev) >> 1, paeth)[kind]
-        data.append(kind)
-        data += ((r - pred) & 255).astype(np.uint8).tobytes()
-        prev = r
-
-    def chunk(tag, body):
-        return (struct.pack(">I", len(body)) + tag + body
-                + struct.pack(">I", zlib.crc32(tag + body)))
-
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(bytes(data), 6))
-            + chunk(b"IEND", b""))
-
-
 def _label_line(car, score=None):
     """A KITTI label line in the writer's own number formats."""
     (x1, y1, x2, y2), (l, h, w), (x, y, z), ry, alpha = car
@@ -646,7 +628,7 @@ def _label_line(car, score=None):
     return line if score is None else line + f" {score:.8f}"
 
 
-def _write_kitti(np, cb, root, pred_dir):
+def _write_kitti(np, cb, png, root, pred_dir):
     """4 frames of 375x1242 with N_BOXES cars each: PNGs, labels, calibs,
     the valid split list and detector txts.  Returns {name: pixels}."""
     rng = np.random.RandomState(3)
@@ -676,7 +658,7 @@ def _write_kitti(np, cb, root, pred_dir):
         img = rng.randint(0, 256, (375, 1242, 3), dtype=np.uint8)
         frames[name] = img
         with open(os.path.join(train, "image_2", name + ".png"), "wb") as f:
-            f.write(_png_bytes(np, img))
+            f.write(png.encode(img))
         with open(os.path.join(train, "label_2", name + ".txt"), "w") as f:
             f.write("\n".join(_label_line(c) for c in cars) + "\n")
         with open(os.path.join(train, "calib", name + ".txt"), "w") as f:
@@ -716,11 +698,12 @@ def cli_phase(np, fb, st):
     from egonet_tpu_torch.config import demo_config
     from egonet_tpu_torch.data import cuboid as cb
     from egonet_tpu_torch.data import png
+    from egonet_tpu_torch.precision import _plausible_ls_stats
     from egonet_tpu_torch.tools import inference
 
     with tempfile.TemporaryDirectory() as tmp:
         root, pred_dir = os.path.join(tmp, "KITTI"), os.path.join(tmp, "pred")
-        frames = _write_kitti(np, cb, root, pred_dir)
+        frames = _write_kitti(np, cb, png, root, pred_dir)
         decode_s = []
         for name, img in frames.items():
             t0 = time.perf_counter()
@@ -730,7 +713,7 @@ def cli_phase(np, fb, st):
             assert np.array_equal(got, img), name
         ckpt, out = os.path.join(tmp, "ckpt"), os.path.join(tmp, "out")
         os.makedirs(ckpt)
-        np.save(os.path.join(ckpt, "LS.npy"), _anchored_ls_stats(np, cb))
+        np.save(os.path.join(ckpt, "LS.npy"), _plausible_ls_stats())
         cfgs = demo_config()
         cfgs["dataset"]["root"] = root
         cfgs["dirs"] = {"output": out, "ckpt": ckpt,
@@ -761,6 +744,7 @@ def cli_phase(np, fb, st):
         n_sub = _check_txts(np, os.path.join(out, "submission", "data"),
                             pred_dir, frames, has_score=True)
         assert n_gt == n_sub == N_FRAMES * N_BOXES, (n_gt, n_sub)
+        evaluator_phase(root, out, summary)
     stats = summary["image_store"]
     evaluation = summary["evaluation"]
     return {"frames": N_FRAMES, "instances_per_path": n_gt,
@@ -773,8 +757,192 @@ def cli_phase(np, fb, st):
             / max(stats["decodes"], 1),
             "png_decode_ms_per_frame": 1e3 * float(np.mean(decode_s)),
             "evaluated": evaluation is not None,
+            "evaluator": summary["evaluator"],
             "orientation": [ln for ln in (evaluation or "").splitlines()
                             if "orientation AP" in ln]}
+
+
+def evaluator_phase(root, out, summary):
+    """The port's Python evaluator and the C++ binary on the CLI phase's
+    submission: their R40 summary lines must be equal.  Also reports which
+    evaluator the CLI ran and whether it wrote PR plots."""
+    import shutil
+    from egonet_tpu_torch.eval import kitti_eval as ke
+    from egonet_tpu_torch.eval.native import ensure_evaluator
+    label_dir = os.path.join(root, "training", "label_2")
+    sub = os.path.join(out, "submission")
+    py_dir = os.path.join(out, "submission_python")    # its own stats files
+    shutil.copytree(os.path.join(sub, "data"), os.path.join(py_dir, "data"))
+    t0 = time.perf_counter()
+    py = ke.format_summary(ke.evaluate(label_dir, py_dir), "r40")
+    py_s = time.perf_counter() - t0
+    binary = ensure_evaluator()
+    assert binary is not None, "the C++ evaluator could not be built"
+    t0 = time.perf_counter()
+    cpp = subprocess.run([binary, label_dir, sub], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    cpp_s = time.perf_counter() - t0
+    py_r40 = py.splitlines()
+    cpp_r40 = [ln for ln in cpp.splitlines() if " AP: " in ln]
+    row = {"python_r40": py_r40, "cpp_r40": cpp_r40,
+           "equal": sorted(py_r40) == sorted(cpp_r40),
+           "python_s": py_s, "cpp_s": cpp_s,
+           "cli_evaluator": summary["evaluator"],
+           "plots_written": (None if summary["plots"] is None
+                             else len(summary["plots"]))}
+    print(json.dumps({"evaluator": row}), flush=True)
+    assert py_r40 and row["equal"], (py_r40, cpp_r40)
+    return row
+
+
+def profile_phase(torch, fb, st, model, annot):
+    """``torch.profiler`` over steady batches of the W48 slice (24 crops,
+    bucket 32): 3 through the tiled kernel, then 1 through the stencil.
+    Prints, per kernel, device ms per facade span and per category, the
+    top 10 kernels, the idle share and the longest gaps, the same batches'
+    untraced time (CUDA events) and the fused kernel's launches in the
+    trace beside its wrapper's counter."""
+    from egonet_tpu_torch.utils import profiling
+    rows = {}
+    for name, stencil, n, cat in (
+            ("default", "0", 3, "fused_basic_block"),
+            ("stencil", "1", 1, "fused_basic_block_stencil")):
+        model.hrnet.prepare_inference(stencil=stencil)
+        model.forward_annot_dict(annot)                     # warm
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            model.forward_annot_dict(annot)
+        end.record()
+        end.synchronize()
+        untraced = start.elapsed_time(end) / n
+        with tempfile.TemporaryDirectory() as log_dir:
+            with profiling.trace(log_dir, "cuda"):       # CUPTI set-up
+                model.forward_annot_dict(annot)
+            fb.fused_basic_block.launches = 0
+            st.fused_basic_block_stencil.launches = 0
+            with profiling.trace(log_dir, "cuda"):
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    model.forward_annot_dict(annot)
+                traced = (time.perf_counter() - t0) * 1e3 / n
+            s = profiling.summarize_trace(log_dir, iters=n)
+        counter = (fb.fused_basic_block.launches if stencil == "0"
+                   else st.fused_basic_block_stencil.launches) / n
+        busy = s["idle"]["busy_ms"]
+        rows[name] = {
+            "batches": n, "instances": N_FRAMES * N_BOXES, "bucket": 32,
+            "untraced_batch_ms": untraced, "traced_batch_ms": traced,
+            "window_ms": s["window_ms"], "device_busy_ms": busy,
+            "device_event_ms": s["total_ms"],
+            "idle_share": s["idle"]["share"],
+            "longest_gaps_ms": s["idle"]["gaps"],
+            "by_span_ms": s["by_span"],
+            "host_by_span_ms": s["host_by_span"],
+            "span_sum_vs_busy": sum(s["by_span"].values()) / busy,
+            "by_category_ms": dict(s["by_category"]),
+            "launches_by_category": s["launches_by_category"],
+            "top_kernels": [[k[:120], ms, c] for k, ms, c in s["by_kernel"]],
+            "fused_ms_per_forward_in_trace": dict(s["by_category"]).get(cat),
+            "fused_launches_per_forward_in_trace":
+                s["launches_by_category"].get(cat, 0),
+            "fused_launches_per_forward_counter": counter}
+        print(json.dumps({"profile": {name: rows[name]}}), flush=True)
+        print(s["text"], flush=True)
+    model.hrnet.prepare_inference(stencil="0")
+    for name, row in rows.items():
+        assert row["fused_launches_per_forward_in_trace"] == 104 \
+            == row["fused_launches_per_forward_counter"], (name, row)
+        assert abs(row["span_sum_vs_busy"] - 1.0) <= 0.15, (name, row)
+    return rows
+
+
+def fixture_phase(torch, np, fb, st, here):
+    """The port's full-width W48 on the card against the JAX package's fp32
+    outputs (tests/data/torch_w48_fixture.npz, seeds 0 and 1, 6 instances
+    each): fp32 with TF32 off, bf16 through the tiled kernel, bf16 through
+    the stencil."""
+    from egonet_tpu_torch import precision
+    with np.load(os.path.join(here, "tests", "data",
+                              "torch_w48_fixture.npz")) as f:
+        fix = {k: f[k] for k in f.files}
+    seeds, n = [int(v) for v in fix["seeds"]], int(fix["n_instances"])
+    outs = {"fp32": [], "bf16_tiled": [], "bf16_stencil": []}
+    launches = {k: [] for k in outs}
+    for seed in seeds:
+        for dtype, runs in ((torch.float32, (("fp32", "0"),)),
+                            (torch.bfloat16, (("bf16_tiled", "0"),
+                                              ("bf16_stencil", "1")))):
+            model = precision.harness_model(dtype, seed, "cuda")
+            for name, stencil in runs:
+                model.hrnet.prepare_inference(stencil=stencil)
+                fb.fused_basic_block.launches = 0
+                st.fused_basic_block_stencil.launches = 0
+                outs[name].append(precision.harness_outputs(model, n, seed))
+                launches[name].append(
+                    (fb.fused_basic_block.launches,
+                     st.fused_basic_block_stencil.launches))
+            del model
+    ref = {k: fix[k].astype(np.float64) for k in
+           ("kpts", "lifter", "euler", "alpha", "logits", "maps_rms")}
+    row = {"seeds": seeds, "instances_per_seed": n}
+    for name, per_seed in outs.items():
+        stacked = {k: np.stack([o[k] for o in per_seed]) for k in ref}
+        row[name] = precision.fixture_gaps(stacked, ref)
+        row[name]["launches_tiled_stencil"] = launches[name]
+        for k, v in stacked.items():
+            assert np.isfinite(v).all(), (name, k)
+    rel = ("max_rel_d_logits", "max_rel_d_maps_rms")
+    row["bars"] = {"fp32": {"max_d_kpts_px": FIXTURE_FP32_KPTS_PX,
+                            "max_d_ry_rad": FIXTURE_FP32_RY_RAD,
+                            **{k: FIXTURE_FP32_REL for k in rel}},
+                   "bf16": {"median_d_ry_deg": 0.5,
+                            "median_d_alpha_deg": 0.5,
+                            **{k: FIXTURE_BF16_REL for k in rel}}}
+    print(json.dumps({"fixture": row}), flush=True)
+    assert all(x == (0, 0) for x in launches["fp32"]), launches
+    assert all(x == (104, 0) for x in launches["bf16_tiled"]), launches
+    assert all(x == (0, 104) for x in launches["bf16_stencil"]), launches
+    g = row["fp32"]
+    assert g["max_d_kpts_px"] <= FIXTURE_FP32_KPTS_PX, g
+    assert np.radians(g["max_d_ry_deg"]) <= FIXTURE_FP32_RY_RAD, g
+    assert all(g[k] <= FIXTURE_FP32_REL for k in rel), g
+    for name in ("bf16_tiled", "bf16_stencil"):
+        assert row[name]["median_d_ry_deg"] < 0.5, row[name]
+        assert row[name]["median_d_alpha_deg"] < 0.5, row[name]
+        assert all(row[name][k] <= FIXTURE_BF16_REL for k in rel), row[name]
+    return row
+
+
+def _quiet_json(fn, *args, **kwargs):
+    """Call an entry point that prints one JSON line; return its result
+    with that line kept off the output (the caller prints it wrapped)."""
+    import contextlib
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def bench_phase():
+    """The port's bench: the device program at batch 32, 128 and 384 (the
+    median of 5 windows of 20 batches each), the e2e loop at its defaults
+    (32 frames, 2 epochs a window, 5 windows)."""
+    from egonet_tpu_torch.tools import bench
+    os.environ["BENCH_BATCH"] = "32,128,384"
+    line = _quiet_json(bench.main, device="cuda")
+    print(json.dumps({"bench": line, "cuts": []}), flush=True)
+    return line
+
+
+def drift_phase():
+    """``tools/precision_drift``: bf16 against fp32 through the default
+    kernel, 6 instances."""
+    from egonet_tpu_torch.tools import precision_drift
+    line = _quiet_json(precision_drift.main, ["6"], device="cuda")
+    print(json.dumps({"drift": line}), flush=True)
+    return line
 
 
 def _kernel_entry(rows, launches, **fields):
@@ -810,8 +978,9 @@ def main() -> int:
     from egonet_tpu_torch.ops import _build
     from egonet_tpu_torch.ops import fused_block as fb
     from egonet_tpu_torch.ops import fused_block_stencil as st
+    from egonet_tpu_torch.tools.bench import card_line
 
-    card = _card_line()
+    card = card_line()
     print(f"card: {card}; torch {torch.__version__}; CUDA {torch.version.cuda}",
           flush=True)
     full_precision_fp32()
@@ -834,10 +1003,17 @@ def main() -> int:
     sresult = stencil_slice_phase(torch, np, fb, st, model, annot, ry, ry_u)
     sresult["tiled_crops_per_s"] = result["crops_per_s"]
     print(json.dumps({"stencil_slice": sresult}), flush=True)
+    profile_phase(torch, fb, st, model, annot)
     del model
+    torch.cuda.empty_cache()
+    fixture_phase(torch, np, fb, st, here)
     torch.cuda.empty_cache()
     cli = cli_phase(np, fb, st)
     print(json.dumps({"cli": cli}), flush=True)
+    torch.cuda.empty_cache()
+    bench_phase()
+    torch.cuda.empty_cache()
+    drift_phase()
 
     assert sum(PER_FORWARD.values()) == result["launches_per_forward"]
     print(json.dumps({"earlier": EARLIER}), flush=True)

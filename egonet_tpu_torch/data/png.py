@@ -1,11 +1,12 @@
-"""PNG reading with the standard library and numpy alone (``zlib``,
-``struct``), for hosts without cv2 or PIL.
+"""PNG reading and writing with the standard library and numpy alone
+(``zlib``, ``struct``), for hosts without cv2 or PIL.
 
 :func:`decode` reads 8-bit, non-interlaced gray, RGB and RGBA images with
 all five row filters and returns RGB uint8 [H, W, 3] with cv2's
 ``IMREAD_COLOR`` semantics: gray is replicated, alpha is dropped.
 Palette, 16-bit and interlaced images raise ``ValueError``.
-:func:`image_size` reads the header alone.
+:func:`image_size` reads the header alone.  :func:`encode` writes an RGB
+uint8 image whose rows cycle through the five row filters.
 
 The None, Sub and Up filters are undone with numpy; Average and Paeth
 depend on the pixel to the left, so they run as a Python loop over the
@@ -144,3 +145,31 @@ def decode(path: str) -> np.ndarray:
     if ch == 1:                           # gray: replicated
         return np.repeat(pixels, 3, axis=2)
     return np.ascontiguousarray(pixels[:, :, :3])
+
+
+def _chunk(tag: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + tag + body
+            + struct.pack(">I", zlib.crc32(tag + body)))
+
+
+def encode(img: np.ndarray) -> bytes:
+    """RGB uint8 [H, W, 3] -> PNG bytes, rows cycling through the None,
+    Sub, Up, Average and Paeth filters (so a reader meets all five)."""
+    h, w, _ = img.shape
+    rows = img.reshape(h, -1).astype(np.int32)
+    data, prev = bytearray(), np.zeros_like(rows[0])
+    for y in range(h):
+        kind, r = y % 5, rows[y]
+        a = np.concatenate([np.zeros(3, np.int32), r[:-3]])
+        c = np.concatenate([np.zeros(3, np.int32), prev[:-3]])
+        pa, pb, pc = np.abs(prev - c), np.abs(a - c), np.abs(a + prev - 2 * c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, prev, c))
+        pred = (0, a, prev, (a + prev) >> 1, paeth)[kind]
+        data.append(kind)
+        data += ((r - pred) & 255).astype(np.uint8).tobytes()
+        prev = r
+    return (_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(bytes(data), 6))
+            + _chunk(b"IEND", b""))

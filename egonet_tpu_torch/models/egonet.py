@@ -16,9 +16,10 @@ full canvases); the device runs
 
 and returns ONE flat [N, D] fp32 array, copied to pinned host memory
 without blocking; ``finalize`` waits on a CUDA event and regroups it per
-image; ``post_process`` writes byte-compatible KITTI txts.  Instance counts
-are padded to the JAX package's buckets so both packages run identical
-batches.
+image; ``post_process`` writes byte-compatible KITTI txts.  Each stage runs
+inside a named range (``utils/profiling.SPANS``), which a trace reads.
+Instance counts are padded to the JAX package's buckets so both packages
+run identical batches.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from egonet_tpu_torch.models.factory import build_heatmap_model
 from egonet_tpu_torch.models.fc_lifter import build_fc_model
 from egonet_tpu_torch.models.init import numpy_init
 from egonet_tpu_torch.ops import affine, packing
+from egonet_tpu_torch.utils.profiling import span
 
 
 def _round_up_bucket(n: int, minimum: int = 8) -> int:
@@ -180,8 +182,9 @@ class EgoNet:
         img_idx [N] host ints (each instance's frame, read as a view)."""
         width, height = self.resolution
         inv_mats, _o, _i, valid, K_f, K_cx, img_wh, _b = _unpack_meta(meta)
-        patches = affine.warp_affine_separable(
-            images, inv_mats, img_idx, (height, width), dtype=self.dtype)
+        with span("warp"):
+            patches = affine.warp_affine_separable(
+                images, inv_mats, img_idx, (height, width), dtype=self.dtype)
         return self._tail(patches, inv_mats, valid, K_f, K_cx, img_wh,
                           alpha_mode)
 
@@ -191,9 +194,10 @@ class EgoNet:
         width, height = self.resolution
         inv_mats, offsets, _w, valid, K_f, K_cx, img_wh, bounds = \
             _unpack_meta(meta)
-        patches = affine.warp_affine_separable_windowed(
-            canvas, inv_mats, offsets, win_y, (height, width),
-            window_h=window_h, dtype=self.dtype, bounds=bounds)
+        with span("warp"):
+            patches = affine.warp_affine_separable_windowed(
+                canvas, inv_mats, offsets, win_y, (height, width),
+                window_h=window_h, dtype=self.dtype, bounds=bounds)
         return self._tail(patches, inv_mats, valid, K_f, K_cx, img_wh,
                           alpha_mode)
 
@@ -203,35 +207,42 @@ class EgoNet:
         screen kpts, lifter output, angles, translation, alpha, valid."""
         width, height = self.resolution
         ls = self.ls_stats
-        crops = affine.normalize_crop_patches(
-            self.cfgs, patches, inv_mats, img_wh, (height, width))
-        _maps, coords = self.hrnet(crops.permute(0, 3, 1, 2))
-        local = coords * torch.tensor([width, height], dtype=torch.float32,
-                                      device=coords.device)
-        screen = affine.batched_affine_transform(local, inv_mats)   # [N,K,2]
+        with span("normalize"):
+            crops = affine.normalize_crop_patches(
+                self.cfgs, patches, inv_mats, img_wh, (height, width))
+        with span("hrnet"):
+            _maps, coords = self.hrnet(crops.permute(0, 3, 1, 2))
+        with span("inverse_affine"):
+            local = coords * torch.tensor([width, height],
+                                          dtype=torch.float32,
+                                          device=coords.device)
+            screen = affine.batched_affine_transform(local, inv_mats)
 
         n = screen.shape[0]
-        flat = screen.reshape(n, -1)
-        norm_in = (flat - ls["mean_in"]) / ls["std_in"]
-        pred = self.lifter(norm_in)
-        pred = pred * ls["std_out"] + ls["mean_out"]
-        kpts_3d = pred.reshape(n, -1, 3)
+        with span("lifter"):
+            flat = screen.reshape(n, -1)
+            norm_in = (flat - ls["mean_in"]) / ls["std_in"]
+            pred = self.lifter(norm_in)
+            pred = pred * ls["std_out"] + ls["mean_out"]
+            kpts_3d = pred.reshape(n, -1, 3)
 
-        if kpts_3d.shape[1] == 33:
-            # 'R3d+T': slot 0 is the predicted camera-frame root, slots
-            # 1..32 the center-relative cuboid
-            angles, _ = rigid.six_dof_from_cuboids(kpts_3d[:, 1:, :])
-            translations = kpts_3d[:, 0, :]
-        else:
-            angles, translations = rigid.six_dof_from_cuboids(kpts_3d)
-        ry = angles[:, 1]
-        if alpha_mode == "trans":
-            alphas = rigid.observation_angle_trans(ry, translations)
-        else:
-            alphas = rigid.observation_angle_proj(ry, screen[:, 0, 0], K_f,
-                                                  K_cx)
-        return torch.cat([flat, pred.float(), angles, translations,
-                          alphas[:, None], valid[:, None]], dim=1)
+        with span("rigid"):
+            if kpts_3d.shape[1] == 33:
+                # 'R3d+T': slot 0 is the predicted camera-frame root, slots
+                # 1..32 the center-relative cuboid
+                angles, _ = rigid.six_dof_from_cuboids(kpts_3d[:, 1:, :])
+                translations = kpts_3d[:, 0, :]
+            else:
+                angles, translations = rigid.six_dof_from_cuboids(kpts_3d)
+        with span("alpha"):
+            ry = angles[:, 1]
+            if alpha_mode == "trans":
+                alphas = rigid.observation_angle_trans(ry, translations)
+            else:
+                alphas = rigid.observation_angle_proj(ry, screen[:, 0, 0],
+                                                      K_f, K_cx)
+            return torch.cat([flat, pred.float(), angles, translations,
+                              alphas[:, None], valid[:, None]], dim=1)
 
     # ------------------------------------------------------------------
     # host-side batch assembly
@@ -262,108 +273,109 @@ class EgoNet:
         """Host-prep one batch and enqueue the device program without
         waiting for it; returns a pending handle for :meth:`finalize` (None
         for an empty batch)."""
-        width, height = self.resolution
-        target_ar = height / width
-        paths = annot_dict["path"]
-        n_img = len(paths)
-        if "images" in annot_dict:
-            decoded = annot_dict["images"]
-        else:
-            decoded = [self.load_image(p) for p in paths]
-
-        inv_mats, img_idx, centers, scales, rbs = [], [], [], [], []
-        per_image_counts, whs = [], []
-        for i in range(n_img):
-            h, w = decoded[i].shape[:2]
-            boxes = np.asarray(annot_dict["boxes"][i], dtype=np.float64)
-            per_image_counts.append(len(boxes))
-            if len(boxes) == 0:
-                continue
-            mats = affine.crop_matrices_for_boxes(
-                boxes, (height, width), target_ar, enlarge)
-            inv_mats.append(mats["inv"])
-            centers.append(mats["center"])
-            scales.append(mats["scale"])
-            rbs.append(mats["bbox_resize"])
-            img_idx.extend([i] * len(boxes))
-            whs.extend([(w, h)] * len(boxes))
-
-        n_total = int(sum(per_image_counts))
-        if n_total == 0:
-            return None
-        inv_f64 = np.concatenate(inv_mats)
-        inv_mats = inv_f64.astype(np.float32)
-        centers = np.concatenate(centers)
-        scales = np.concatenate(scales)
-        rbs = np.concatenate(rbs)
-        img_idx = np.asarray(img_idx, dtype=np.int32)
-
-        # transport: the ROI-packed canvas when it moves fewer bytes than
-        # the zero-padded full canvases, or when a frame exceeds the canvas
-        plan = None
-        if self.pack_mode != "never":
-            plan = packing.plan(inv_f64, (height, width),
-                                np.asarray(whs, np.float64),
-                                profile=pack_profile)
-        use_pack = False
-        if plan is not None:
-            if self.pack_mode == "always" or pack_profile == "serving":
-                use_pack = True
+        with span("host_prep"):
+            width, height = self.resolution
+            target_ar = height / width
+            paths = annot_dict["path"]
+            n_img = len(paths)
+            if "images" in annot_dict:
+                decoded = annot_dict["images"]
             else:
-                oversize = any(im.shape[0] > canvas_hw[0]
-                               or im.shape[1] > canvas_hw[1]
-                               for im in decoded)
-                use_pack = oversize or (plan.canvas_bytes <
-                                        n_img * canvas_hw[0]
-                                        * canvas_hw[1] * 3)
-        if use_pack:
-            images = packing.assemble(plan, decoded, img_idx)
-            self.transport_stats["packed_batches"] += 1
-            self.transport_stats["packed_bytes"] += images.nbytes
-        else:
-            self.transport_stats["canvas_batches"] += 1
-            self.transport_stats["canvas_bytes"] += (
-                n_img * canvas_hw[0] * canvas_hw[1] * 3)
-            images = np.zeros((n_img, canvas_hw[0], canvas_hw[1], 3),
-                              np.uint8)
-            for i, im in enumerate(decoded):
-                h, w = im.shape[:2]
-                if h > canvas_hw[0] or w > canvas_hw[1]:
-                    raise ValueError(f"image {paths[i]} ({h}x{w}) exceeds "
-                                     f"canvas {canvas_hw}")
-                images[i, :h, :w] = im
+                decoded = [self.load_image(p) for p in paths]
 
-        Ks = [np.asarray(annot_dict["K"][i]) if "K" in annot_dict
-              else np.eye(3) for i in range(n_img)]
-        K_f = np.array([Ks[j][0, 0] for j in img_idx], np.float32)
-        K_cx = np.array([Ks[j][0, 2] for j in img_idx], np.float32)
+            inv_mats, img_idx, centers, scales, rbs = [], [], [], [], []
+            per_image_counts, whs = [], []
+            for i in range(n_img):
+                h, w = decoded[i].shape[:2]
+                boxes = np.asarray(annot_dict["boxes"][i], dtype=np.float64)
+                per_image_counts.append(len(boxes))
+                if len(boxes) == 0:
+                    continue
+                mats = affine.crop_matrices_for_boxes(
+                    boxes, (height, width), target_ar, enlarge)
+                inv_mats.append(mats["inv"])
+                centers.append(mats["center"])
+                scales.append(mats["scale"])
+                rbs.append(mats["bbox_resize"])
+                img_idx.extend([i] * len(boxes))
+                whs.extend([(w, h)] * len(boxes))
 
-        bucket = _round_up_bucket(n_total)
-        if pack_profile == "serving":
-            bucket = max(bucket, 128 if bucket_floor is None
-                         else int(bucket_floor))
-        pad = bucket - n_total
-        valid = np.concatenate([np.ones(n_total, np.float32),
-                                np.zeros(pad, np.float32)])
-        # padding rows: identity affines, benign K/img_wh (masked by valid)
-        meta = np.zeros((bucket, META_COLS), np.float32)
-        meta[:, 0:6] = np.eye(2, 3).reshape(6)
-        meta[:n_total, 0:6] = inv_mats.reshape(n_total, 6)
-        src_idx = np.zeros(bucket, np.int64)
-        if use_pack:
-            meta[:n_total, 6:8] = plan.offsets
-            meta[:n_total, 8] = plan.win_y
-            meta[:n_total, 14:18] = plan.bounds
-            src_idx[:n_total] = plan.win_y
-        else:
-            meta[:n_total, 8] = img_idx
-            src_idx[:n_total] = img_idx
-        meta[:, 9] = valid
-        meta[:, 10] = 1.0
-        meta[:n_total, 10] = K_f
-        meta[:n_total, 11] = K_cx
-        meta[:, 12:14] = 1.0
-        meta[:n_total, 12:14] = np.asarray(whs, np.float32)
+            n_total = int(sum(per_image_counts))
+            if n_total == 0:
+                return None
+            inv_f64 = np.concatenate(inv_mats)
+            inv_mats = inv_f64.astype(np.float32)
+            centers = np.concatenate(centers)
+            scales = np.concatenate(scales)
+            rbs = np.concatenate(rbs)
+            img_idx = np.asarray(img_idx, dtype=np.int32)
+
+            # transport: the ROI-packed canvas when it moves fewer bytes than
+            # the zero-padded full canvases, or when a frame exceeds the canvas
+            plan = None
+            if self.pack_mode != "never":
+                plan = packing.plan(inv_f64, (height, width),
+                                    np.asarray(whs, np.float64),
+                                    profile=pack_profile)
+            use_pack = False
+            if plan is not None:
+                if self.pack_mode == "always" or pack_profile == "serving":
+                    use_pack = True
+                else:
+                    oversize = any(im.shape[0] > canvas_hw[0]
+                                   or im.shape[1] > canvas_hw[1]
+                                   for im in decoded)
+                    use_pack = oversize or (plan.canvas_bytes <
+                                            n_img * canvas_hw[0]
+                                            * canvas_hw[1] * 3)
+            if use_pack:
+                images = packing.assemble(plan, decoded, img_idx)
+                self.transport_stats["packed_batches"] += 1
+                self.transport_stats["packed_bytes"] += images.nbytes
+            else:
+                self.transport_stats["canvas_batches"] += 1
+                self.transport_stats["canvas_bytes"] += (
+                    n_img * canvas_hw[0] * canvas_hw[1] * 3)
+                images = np.zeros((n_img, canvas_hw[0], canvas_hw[1], 3),
+                                  np.uint8)
+                for i, im in enumerate(decoded):
+                    h, w = im.shape[:2]
+                    if h > canvas_hw[0] or w > canvas_hw[1]:
+                        raise ValueError(f"image {paths[i]} ({h}x{w}) exceeds "
+                                         f"canvas {canvas_hw}")
+                    images[i, :h, :w] = im
+
+            Ks = [np.asarray(annot_dict["K"][i]) if "K" in annot_dict
+                  else np.eye(3) for i in range(n_img)]
+            K_f = np.array([Ks[j][0, 0] for j in img_idx], np.float32)
+            K_cx = np.array([Ks[j][0, 2] for j in img_idx], np.float32)
+
+            bucket = _round_up_bucket(n_total)
+            if pack_profile == "serving":
+                bucket = max(bucket, 128 if bucket_floor is None
+                             else int(bucket_floor))
+            pad = bucket - n_total
+            valid = np.concatenate([np.ones(n_total, np.float32),
+                                    np.zeros(pad, np.float32)])
+            # padding rows: identity affines, benign K/img_wh (masked by valid)
+            meta = np.zeros((bucket, META_COLS), np.float32)
+            meta[:, 0:6] = np.eye(2, 3).reshape(6)
+            meta[:n_total, 0:6] = inv_mats.reshape(n_total, 6)
+            src_idx = np.zeros(bucket, np.int64)
+            if use_pack:
+                meta[:n_total, 6:8] = plan.offsets
+                meta[:n_total, 8] = plan.win_y
+                meta[:n_total, 14:18] = plan.bounds
+                src_idx[:n_total] = plan.win_y
+            else:
+                meta[:n_total, 8] = img_idx
+                src_idx[:n_total] = img_idx
+            meta[:, 9] = valid
+            meta[:, 10] = 1.0
+            meta[:n_total, 10] = K_f
+            meta[:n_total, 11] = K_cx
+            meta[:, 12:14] = 1.0
+            meta[:n_total, 12:14] = np.asarray(whs, np.float32)
 
         images_d = self._upload(images)
         meta_d = self._upload(meta)
@@ -382,27 +394,33 @@ class EgoNet:
         return host, ready, ctx
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cpu":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        with span("h2d"):
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+            if self.device.type == "cpu":
+                return t
+            return t.pin_memory().to(self.device, non_blocking=True)
 
     def _download(self, out: torch.Tensor):
         """Start the device->host copy of the fused output into pinned
         memory; returns (host tensor, CUDA event to wait on, or None)."""
-        if self.device.type == "cpu":
-            return out, None
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record()
-        return host, ready
+        with span("d2h"):
+            if self.device.type == "cpu":
+                return out, None
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            return host, ready
 
     def finalize(self, pending) -> dict:
         """Wait for a dispatched batch's outputs and regroup them per
         image."""
         if pending is None:
             return {}
+        with span("finalize"):
+            return self._finalize(pending)
+
+    def _finalize(self, pending) -> dict:
         host, ready, ctx = pending
         if ready is not None:
             ready.synchronize()

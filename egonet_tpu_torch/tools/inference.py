@@ -1,8 +1,8 @@
 """Inference CLI of the PyTorch port: refine the orientation of externally
 detected boxes (and/or ground-truth boxes) on a KITTI directory, write
-KITTI txts under ``<dirs.output>/{gt_box_test,submission}/data/``, and
-score the submission with the C++ evaluator (port of
-``tools/inference.py``).
+KITTI txts under ``<dirs.output>/{gt_box_test,submission}/data/``, score
+the submission with the C++ evaluator (or, where it cannot be built, the
+Python one) and draw its PR curves (port of ``tools/inference.py``).
 
     python -m egonet_tpu_torch.tools.inference --cfg <yaml> \\
         [--visualize false] [--batch_to_show N]
@@ -147,7 +147,8 @@ def main(argv=None, cfgs=None) -> dict:
     Returns {"image_store": the decoded-image store's stats, "transport":
     the facade's transport stats, "inference_s": seconds of the inference
     loop (decode, host prep, device, txt files), "evaluation": the
-    evaluator's output or None}."""
+    evaluator's summary or None, "evaluator": "cpp" or "python", "plots":
+    the PR-curve PNGs written, or None without matplotlib}."""
     if cfgs is None:
         cfgs = cfg_mod.parse_args(argv)
     else:
@@ -177,7 +178,7 @@ def main(argv=None, cfgs=None) -> dict:
                                if model.image_store is not None else None),
                "transport": dict(model.transport_stats),
                "inference_s": time.perf_counter() - t0,
-               "evaluation": None}
+               "evaluation": None, "evaluator": None, "plots": None}
 
     output_dir = os.path.join(cfgs["dirs"]["output"], "submission")
     if split == "test":
@@ -188,18 +189,42 @@ def main(argv=None, cfgs=None) -> dict:
         return summary
     from egonet_tpu_torch.eval.native import ensure_evaluator
     evaluator = ensure_evaluator()
-    if evaluator is None:
-        msg = ("not evaluated: the C++ evaluator could not be built (run "
-               "`make -C tools/kitti-eval`), and the Python evaluator is not "
-               "ported yet")
-        logger.info(msg)
-        print(msg)
-        return summary
     label_dir = os.path.join(cfgs["dataset"]["root"], "training", "label_2")
-    out = subprocess.check_output([evaluator, label_dir, output_dir]).decode()
+    if evaluator is not None:
+        out = subprocess.check_output([evaluator, label_dir,
+                                       output_dir]).decode()
+        summary["evaluator"] = "cpp"
+    else:
+        # the C++ binary ships as source (make -C tools/kitti-eval); score
+        # with the Python evaluator rather than skip the evaluation
+        logger.info("C++ evaluator not built (make -C tools/kitti-eval); "
+                    "using the Python evaluator")
+        from egonet_tpu_torch.eval import kitti_eval as ke
+        results = ke.evaluate(label_dir, output_dir)   # writes stats files
+        out = (ke.format_summary(results, style="r40") + "\n"
+               + ke.format_summary(results, style="r11"))
+        summary["evaluator"] = "python"
     print(out)
     summary["evaluation"] = out
+    summary["plots"] = write_plots(output_dir, logger)
     return summary
+
+
+def write_plots(result_dir: str, logger):
+    """PR-curve PNGs from the evaluator's stats files into
+    ``<result_dir>/plot`` (the reference's gnuplot figures); the written
+    paths, or None with one printed line where matplotlib is missing."""
+    import importlib.util
+    if importlib.util.find_spec("matplotlib") is None:
+        msg = "PR plots not written: matplotlib is not installed"
+        logger.info(msg)
+        print(msg)
+        return None
+    from egonet_tpu_torch.eval.plots import plot_pr_curves
+    written = plot_pr_curves(result_dir)
+    for p in written:
+        logger.info(f"wrote {p}")
+    return written
 
 
 if __name__ == "__main__":

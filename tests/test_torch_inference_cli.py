@@ -172,3 +172,109 @@ def test_visualize_and_cpu_fallback_raise(world, monkeypatch):
     cfg.pop("device")
     with pytest.raises(RuntimeError, match="CUDA"):
         inference.main(cfgs=cfg)
+
+
+@pytest.fixture(scope="module")
+def python_eval(world, tmp_path_factory):
+    """Both CLIs again with the C++ evaluator unavailable, so each scores
+    with its own package's Python evaluator.  Returns what each printed,
+    the port's summary and output directory."""
+    import contextlib
+    import io
+    from egonet_tpu.eval import native as jax_native
+    from egonet_tpu_torch.eval import native
+    from egonet_tpu_torch.tools import inference
+    tmp = tmp_path_factory.mktemp("python_eval")
+    jcfg = _setup(default_demo_config(), world["root"], world["pred_dir"],
+                  str(tmp / "out_jax"))
+    cfg_path = str(tmp / "cfg.yml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump({k: v for k, v in jcfg.items() if k != "config_path"},
+                       f)
+    tcfg = _setup(demo_config(), world["root"], world["pred_dir"],
+                  str(tmp / "out_torch"))
+    tcfg["device"] = "cpu"
+    printed = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "ensure_evaluator", lambda quiet=True: None)
+        mp.setattr(native, "ensure_evaluator", lambda quiet=True: None)
+        for name, run in (("jax", lambda: _jax_cli().main(["--cfg",
+                                                            cfg_path])),
+                          ("torch", lambda: inference.main(cfgs=tcfg))):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                result = run()
+            printed[name] = buf.getvalue()
+    return {"printed": printed, "summary": result,
+            "out": str(tmp / "out_torch"),
+            "labels": os.path.join(world["root"], "training", "label_2")}
+
+
+def _ap_lines(text):
+    return [ln for ln in text.splitlines() if " AP: " in ln]
+
+
+def test_cli_scores_with_python_evaluator_without_binary(python_eval):
+    """The port's CLI prints the R40 and R11 summaries of the Python
+    evaluator over its own submission, as the JAX CLI's fallback does."""
+    from egonet_tpu.eval import kitti_eval as jax_ke
+    summary = python_eval["summary"]
+    assert summary["evaluator"] == "python"
+    results = jax_ke.evaluate(python_eval["labels"],
+                              os.path.join(python_eval["out"], "submission"),
+                              write_stats=False)
+    want = (jax_ke.format_summary(results, "r40") + "\n"
+            + jax_ke.format_summary(results, "r11"))
+    assert summary["evaluation"] == want
+    assert want in python_eval["printed"]["torch"]
+
+
+def test_cli_summary_matches_jax_cli_fallback(python_eval):
+    """The same summary lines as the JAX CLI's Python fallback: detection
+    lines equal, orientation lines within the angle gap of the two CLIs
+    (the JAX CLI runs its program under jit, ANGLE_TOL)."""
+    ours = _ap_lines(python_eval["printed"]["torch"])
+    theirs = _ap_lines(python_eval["printed"]["jax"])
+    assert ours and len(ours) == len(theirs)
+    for a, b in zip(ours, theirs):
+        la, va = a.split(" AP: ")
+        lb, vb = b.split(" AP: ")
+        assert la == lb
+        if "orientation" in la:
+            np.testing.assert_allclose(np.float64(va.split()),
+                                       np.float64(vb.split()), atol=0.05)
+        else:
+            assert va == vb, (a, b)
+
+
+def test_cli_writes_pr_plots(python_eval):
+    """PR-curve PNGs land in <submission>/plot, one per stats file (or the
+    CLI says matplotlib is missing)."""
+    plots = python_eval["summary"]["plots"]
+    sub = os.path.join(python_eval["out"], "submission")
+    stats = sorted(f[len("stats_"):-len(".txt")] for f in os.listdir(sub)
+                   if f.startswith("stats_"))
+    if plots is None:
+        assert ("PR plots not written: matplotlib is not installed"
+                in python_eval["printed"]["torch"])
+        return
+    assert stats and sorted(os.path.basename(p)[:-4] for p in plots) == stats
+    for p in plots:
+        assert os.path.dirname(p) == os.path.join(sub, "plot")
+
+
+class _NullLogger:
+    def info(self, msg):
+        pass
+
+
+def test_cli_without_matplotlib_says_so(tmp_path, monkeypatch, capsys):
+    import importlib.util
+    from egonet_tpu_torch.tools import inference
+    real = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec",
+                        lambda name, *a: None if name == "matplotlib"
+                        else real(name, *a))
+    assert inference.write_plots(str(tmp_path), _NullLogger()) is None
+    assert "PR plots not written: matplotlib is not installed" in \
+        capsys.readouterr().out
