@@ -79,6 +79,7 @@ Exits non-zero, printing no result, without CUDA or outside a checkout.
 Any failure raises (non-zero exit).
 """
 
+import copy
 import json
 import os
 import re
@@ -149,6 +150,14 @@ FIXTURE_FP32_REL, FIXTURE_BF16_REL = 2e-5, 5e-2
 PEAK_BF16 = 989e12          # H100 SXM dense bf16 FLOP/s
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bytes/s
 N_FRAMES, N_BOXES = 4, 6
+# the training phases' train split: one IGR batch of frames (the shipped
+# batch_size), 3 cars each (72 real crops, padded to 140); IGR runs 6 steps
+N_TRAIN_FRAMES, N_TRAIN_BOXES, N_TRAIN_STEPS = 24, 3, 6
+# the full-width train step against the JAX fixture (relative gaps,
+# precision.train_gaps): as on the CPU, twice the fp32 rounding of either
+# package against fp64 (tests/test_torch_train_fixture.py)
+TRAIN_FIXTURE_BARS = {"loss": 1e-5, "hm": 1e-5, "coor": 2e-5,
+                      "grad_norms": 1e-2, "bn_stats": 1e-4}
 
 
 def _ptxas_summary(log):
@@ -693,61 +702,62 @@ def _check_txts(np, out_dir, in_dir, names, has_score):
     return n
 
 
-def cli_phase(np, fb, st):
-    """The port's inference CLI over a KITTI directory, stencil on."""
+def cli_phase(np, fb, st, tmp):
+    """The port's inference CLI over a KITTI directory it writes under
+    ``tmp``, stencil on.  Returns (its JSON row, the KITTI root, the
+    detector txts' directory)."""
     from egonet_tpu_torch.config import demo_config
     from egonet_tpu_torch.data import cuboid as cb
     from egonet_tpu_torch.data import png
     from egonet_tpu_torch.precision import _plausible_ls_stats
     from egonet_tpu_torch.tools import inference
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root, pred_dir = os.path.join(tmp, "KITTI"), os.path.join(tmp, "pred")
-        frames = _write_kitti(np, cb, png, root, pred_dir)
-        decode_s = []
-        for name, img in frames.items():
-            t0 = time.perf_counter()
-            got = png.decode(os.path.join(root, "training", "image_2",
-                                          name + ".png"))
-            decode_s.append(time.perf_counter() - t0)
-            assert np.array_equal(got, img), name
-        ckpt, out = os.path.join(tmp, "ckpt"), os.path.join(tmp, "out")
-        os.makedirs(ckpt)
-        np.save(os.path.join(ckpt, "LS.npy"), _plausible_ls_stats())
-        cfgs = demo_config()
-        cfgs["dataset"]["root"] = root
-        cfgs["dirs"] = {"output": out, "ckpt": ckpt,
-                        "load_prediction_file": pred_dir}
-        cfgs["pre_trained"] = True            # loads LS.npy (no HC / L)
+    root, pred_dir = os.path.join(tmp, "KITTI"), os.path.join(tmp, "pred")
+    frames = _write_kitti(np, cb, png, root, pred_dir)
+    decode_s = []
+    for name, img in frames.items():
+        t0 = time.perf_counter()
+        got = png.decode(os.path.join(root, "training", "image_2",
+                                      name + ".png"))
+        decode_s.append(time.perf_counter() - t0)
+        assert np.array_equal(got, img), name
+    ckpt, out = os.path.join(tmp, "ckpt"), os.path.join(tmp, "out")
+    os.makedirs(ckpt)
+    np.save(os.path.join(ckpt, "LS.npy"), _plausible_ls_stats())
+    cfgs = demo_config()
+    cfgs["dataset"]["root"] = root
+    cfgs["dirs"] = {"output": out, "ckpt": ckpt,
+                    "load_prediction_file": pred_dir}
+    cfgs["pre_trained"] = True            # loads LS.npy (no HC / L)
 
-        old = os.environ.get("EGONET_PALLAS_STENCIL")
-        os.environ["EGONET_PALLAS_STENCIL"] = "1"
-        try:
-            fb.fused_basic_block.launches = 0
-            st.fused_basic_block_stencil.launches = 0
-            t0 = time.perf_counter()
-            summary = inference.main(cfgs=cfgs)
-            cli_s = time.perf_counter() - t0
-            launches = {"tiled": fb.fused_basic_block.launches,
-                        "stencil": st.fused_basic_block_stencil.launches}
-        finally:
-            if old is None:
-                del os.environ["EGONET_PALLAS_STENCIL"]
-            else:
-                os.environ["EGONET_PALLAS_STENCIL"] = old
-        # one forward per frame and path (testing_settings.batch_size 1)
-        assert launches == {"tiled": 0, "stencil": 104 * 2 * N_FRAMES}, \
-            launches
-        n_gt = _check_txts(np, os.path.join(out, "gt_box_test", "data"),
-                           os.path.join(root, "training", "label_2"), frames,
-                           has_score=False)
-        n_sub = _check_txts(np, os.path.join(out, "submission", "data"),
-                            pred_dir, frames, has_score=True)
-        assert n_gt == n_sub == N_FRAMES * N_BOXES, (n_gt, n_sub)
-        evaluator_phase(root, out, summary)
+    old = os.environ.get("EGONET_PALLAS_STENCIL")
+    os.environ["EGONET_PALLAS_STENCIL"] = "1"
+    try:
+        fb.fused_basic_block.launches = 0
+        st.fused_basic_block_stencil.launches = 0
+        t0 = time.perf_counter()
+        summary = inference.main(cfgs=cfgs)
+        cli_s = time.perf_counter() - t0
+        launches = {"tiled": fb.fused_basic_block.launches,
+                    "stencil": st.fused_basic_block_stencil.launches}
+    finally:
+        if old is None:
+            del os.environ["EGONET_PALLAS_STENCIL"]
+        else:
+            os.environ["EGONET_PALLAS_STENCIL"] = old
+    # one forward per frame and path (testing_settings.batch_size 1)
+    assert launches == {"tiled": 0, "stencil": 104 * 2 * N_FRAMES}, \
+        launches
+    n_gt = _check_txts(np, os.path.join(out, "gt_box_test", "data"),
+                       os.path.join(root, "training", "label_2"), frames,
+                       has_score=False)
+    n_sub = _check_txts(np, os.path.join(out, "submission", "data"),
+                        pred_dir, frames, has_score=True)
+    assert n_gt == n_sub == N_FRAMES * N_BOXES, (n_gt, n_sub)
+    evaluator_phase(root, out, summary)
     stats = summary["image_store"]
     evaluation = summary["evaluation"]
-    return {"frames": N_FRAMES, "instances_per_path": n_gt,
+    row = {"frames": N_FRAMES, "instances_per_path": n_gt,
             "launches": launches["stencil"],
             "tiled_launches": launches["tiled"], "cli_s": cli_s,
             "inference_s": summary["inference_s"],
@@ -760,6 +770,7 @@ def cli_phase(np, fb, st):
             "evaluator": summary["evaluator"],
             "orientation": [ln for ln in (evaluation or "").splitlines()
                             if "orientation AP" in ln]}
+    return row, root, pred_dir
 
 
 def evaluator_phase(root, out, summary):
@@ -960,6 +971,229 @@ def _kernel_entry(rows, launches, **fields):
             "library_ms": total("library_ms"),
             "per": "one HRNet-W48 forward at 32 crops (104 launches)"}
 
+# ---------------------------------------------------------------------------
+# the training phases, on the CLI phase's KITTI directory
+# ---------------------------------------------------------------------------
+
+def _write_train_split(np, root):
+    """N_TRAIN_FRAMES more labelled frames of 375x1242 with N_TRAIN_BOXES
+    cars each (PNGs, labels, calibrations) and the train split list."""
+    from egonet_tpu_torch.data import cuboid as cb
+    from egonet_tpu_torch.data import png
+    rng = np.random.RandomState(5)
+    K = np.array([[721.5, 0.0, 609.6], [0.0, 721.5, 172.9], [0.0, 0.0, 1.0]])
+    P = np.hstack([K, (K @ np.array([0.06, 0.0, 0.0]))[:, None]])
+    train = os.path.join(root, "training")
+    names = [f"{N_FRAMES + i:06d}" for i in range(N_TRAIN_FRAMES)]
+    for name in names:
+        cars = []
+        for _ in range(N_TRAIN_BOXES):
+            dims = (rng.uniform(3.5, 4.5), rng.uniform(1.4, 1.7),
+                    rng.uniform(1.5, 1.8))
+            loc = (rng.uniform(-6, 6), 1.65, rng.uniform(8, 30))
+            ry = rng.uniform(-np.pi, np.pi)
+            uv = cb.project_3d_to_2d(cb.place_cuboid(
+                cb.construct_box_3d(*dims, interpolate=False),
+                [*loc, 0.0, ry, 0.0], np.array([0.06, 0.0, 0.0])), K)[:2]
+            box = (max(uv[0].min(), 0.0), max(uv[1].min(), 0.0),
+                   min(uv[0].max(), 1241.0), min(uv[1].max(), 374.0))
+            cars.append((box, dims, loc, ry, rng.uniform(-np.pi, np.pi)))
+        img = rng.randint(0, 256, (375, 1242, 3), dtype=np.uint8)
+        with open(os.path.join(train, "image_2", name + ".png"), "wb") as f:
+            f.write(png.encode(img))
+        with open(os.path.join(train, "label_2", name + ".txt"), "w") as f:
+            f.write("\n".join(_label_line(c) for c in cars) + "\n")
+        with open(os.path.join(train, "calib", name + ".txt"), "w") as f:
+            f.write("P2: " + " ".join(f"{v:.12e}" for v in P.reshape(-1))
+                    + "\n")
+    with open(os.path.join(train, "ImageSets", "train.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+
+
+def train_lifter_phase(torch, np, root, out, card):
+    """``tools/train_lifting.main`` on the shipped lifting config (full
+    width: 66 -> 1024 -> 96, 2 blocks, batch 2048, 100 augmentations a
+    pose) for 3 epochs; L.pth and LS.npy must load strictly into the port's
+    EgoNet."""
+    from egonet_tpu_torch.config import demo_config, train_lifting_config
+    from egonet_tpu_torch.models.egonet import EgoNet
+    from egonet_tpu_torch.tools import train_lifting
+    t0 = time.perf_counter()
+    cfgs = train_lifting_config()
+    cfgs["dataset"]["root"] = root
+    cfgs["dirs"] = {"output": out}
+    cfgs["training_settings"]["total_epochs"] = 3
+    summary = _quiet_json(train_lifting.main, cfgs=cfgs)
+    hist = summary["history"]
+    dcfg = demo_config()
+    dcfg["dirs"] = {"ckpt": summary["ckpt_dir"]}
+    EgoNet(dcfg, pre_trained=True, device="cuda")      # strict loads
+    row = {"card": card, "epochs": len(hist),
+           "train_pairs": summary["train_pairs"],
+           "valid_pairs": summary["valid_pairs"],
+           "ms_per_epoch": [1e3 * h["seconds"] for h in hist],
+           "samples_per_s": [summary["train_pairs"] / h["seconds"]
+                             for h in hist],
+           "loss": [h["loss"] for h in hist],
+           "valid_mse": [h["valid_mse"] for h in hist],
+           "strict_load": True, "seconds": time.perf_counter() - t0}
+    print(json.dumps({"train_lifter": row}), flush=True)
+    assert all(np.isfinite(row["loss"] + row["valid_mse"])), row
+    return summary["ckpt_dir"]
+
+
+def _fixed_batch_steps(torch, np, cfgs, dtype, n_steps=6):
+    """One warm step, then ``n_steps`` IGR train steps on one fixed batch
+    of the train split (24 frames, padded to MAX_INS_CNT crops), each
+    timed with CUDA events (the host batch's copy included)."""
+    from egonet_tpu_torch.data import kitti
+    from egonet_tpu_torch.data.loader import IGRBatchLoader
+    from egonet_tpu_torch.train.igrs import IGRTrainer
+    records = kitti.KITTIDataset(cfgs, "train").records
+    batch = next(IGRBatchLoader(records, cfgs, train=True, seed=0).epoch())
+    real, padded = batch["meta"]["count"], len(batch["mask"])
+    trainer = IGRTrainer(cfgs, dtype=dtype, device="cuda")
+    state = trainer.init_state(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, m = trainer.train_step(state, batch)
+    losses, events = [m["loss"]], []
+    for _ in range(n_steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = trainer.train_step(state, batch)
+        b.record()
+        events.append((a, b))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in events]
+    losses = [float(x) for x in losses]
+    row = {"frames": len(batch["images"]), "real_crops": real,
+           "padded_crops": padded, "ms": ms,
+           "real_crops_per_s": [1e3 * real / t for t in ms],
+           "padded_crops_per_s": [1e3 * padded / t for t in ms],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss": losses}
+    del trainer, state
+    torch.cuda.empty_cache()
+    assert np.isfinite(losses).all(), row
+    assert losses[-1] < losses[0], row
+    return row
+
+
+def _train_fixture_row(torch, np, here):
+    """The port's fp32 step (TF32 off) at full width against the JAX
+    package's (tests/data/torch_train_fixture.npz)."""
+    from egonet_tpu_torch import precision
+    from egonet_tpu_torch.config import train_igrs_config
+    from egonet_tpu_torch.train.igrs import IGRTrainer
+    with np.load(os.path.join(here, "tests", "data",
+                              "torch_train_fixture.npz")) as f:
+        ref = {k: f[k] for k in f.files if not k.startswith("f64/")}
+    for k in ("loss", "hm", "coor"):
+        ref[k] = float(ref[k])
+    cfgs = train_igrs_config()
+    trainer = IGRTrainer(cfgs, device="cuda")
+    state = trainer.init_state(0)
+    out = precision.train_step_outputs(
+        trainer, state, precision.train_fixture_batch(cfgs, 2, 0))
+    gaps = precision.train_gaps(out, ref)
+    del trainer, state
+    torch.cuda.empty_cache()
+    return {"gaps": gaps, "bars": TRAIN_FIXTURE_BARS,
+            "ok": all(v <= TRAIN_FIXTURE_BARS[k] for k, v in gaps.items())}
+
+
+def train_igrs_phase(torch, np, here, root, pred_dir, ckpt_dir, out, card):
+    """The shipped IGR config at full W48 width (24 frames a batch, padded
+    to 140 crops): a fixed batch's steps in fp32 (TF32 off) and bf16, the
+    fp32 step against the JAX fixture, ``tools/train_igrs.main`` for 6
+    steps in each dtype (the fp32 HC.pth joins the lifter's L.pth / LS.npy
+    in ``ckpt_dir``), the inference CLI over the valid split on those
+    files, and ``tools/profile_model --train``'s split of one bf16
+    step."""
+    from egonet_tpu_torch.config import demo_config, train_igrs_config
+    from egonet_tpu_torch.ops import fused_block as fb
+    from egonet_tpu_torch.tools import inference, profile_model, train_igrs
+    from egonet_tpu_torch.utils import profiling
+    t0 = time.perf_counter()
+    row = {"card": card}
+    cfgs = train_igrs_config()
+    cfgs["dataset"]["root"] = root
+    cfgs["heatmapModel"]["pretrained"] = ""
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        row[f"fixed_batch_{name}"] = _fixed_batch_steps(torch, np, cfgs,
+                                                        dtype)
+    row["fixture_fp32"] = _train_fixture_row(torch, np, here)
+    row["fixed_batch_s"] = time.perf_counter() - t0
+
+    for name, bf16 in (("bf16", True), ("fp32", False)):
+        t1 = time.perf_counter()
+        run = copy.deepcopy(cfgs)
+        run["bf16"] = bf16
+        run["dirs"] = {"output": out if not bf16 else out + "_bf16"}
+        run["training_settings"]["total_epochs"] = N_TRAIN_STEPS
+        summary = train_igrs.main(cfgs=run)
+        hist = summary["history"]
+        row[f"main_{name}"] = {
+            "steps": len(hist), "loss": [h["loss"] for h in hist],
+            "ms_per_step": [1e3 * h["seconds"] for h in hist],
+            # each step's wall time by what the host did: waiting for the
+            # loader's batch, launching and waiting for the step, debug grids
+            "ms_split": [{k: 1e3 * v for k, v in h["split"].items()}
+                         for h in hist],
+            "debug_grids": len(os.listdir(os.path.join(
+                summary["ckpt_dir"], "debug"))),
+            "seconds": time.perf_counter() - t1}
+        assert np.isfinite(row[f"main_{name}"]["loss"]).all(), row
+        torch.cuda.empty_cache()
+    assert summary["ckpt_dir"] == ckpt_dir, (summary["ckpt_dir"], ckpt_dir)
+
+    t1 = time.perf_counter()
+    dcfg = demo_config()
+    dcfg["dataset"]["root"] = root
+    dcfg["dirs"] = {"output": os.path.join(out, "inference"),
+                    "ckpt": ckpt_dir, "load_prediction_file": pred_dir}
+    dcfg["pre_trained"] = True                # HC.pth, L.pth, LS.npy
+    fb.fused_basic_block.launches = 0
+    summary = inference.main(cfgs=dcfg)
+    launches = fb.fused_basic_block.launches
+    frames = [f"{i:06d}" for i in range(N_FRAMES)]
+    n = _check_txts(np, os.path.join(dcfg["dirs"]["output"], "submission",
+                                     "data"), pred_dir, frames,
+                    has_score=True)
+    row["closed_loop"] = {
+        "instances": n, "tiled_launches": launches,
+        "evaluator": summary["evaluator"],
+        "orientation": [ln for ln in summary["evaluation"].splitlines()
+                        if "orientation AP" in ln],
+        "seconds": time.perf_counter() - t1}
+    assert launches == 104 * 2 * N_FRAMES, launches
+    assert n == N_FRAMES * N_BOXES, n
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    prof = _quiet_json(profile_model.main,
+                       ["--train", "--iters", "2", "--trace-dir",
+                        os.path.join(out, "profile")], device="cuda")
+    row["profile_train_bf16"] = {
+        "device_ms": prof["total_ms"], "window_ms": prof["window_ms"],
+        "device_ms_by_span": prof["by_span"],
+        "host_ms_by_span": prof["host_by_span"],
+        "launches": sum(prof["launches_by_category"].values()),
+        "launches_by_category": prof["launches_by_category"],
+        "idle_share": prof["idle"]["share"],
+        "top_kernels": [(k[:80], ms, n) for k, ms, n in prof["by_kernel"][:5]],
+        "seconds": time.perf_counter() - t1}
+    spans = sum(prof["by_span"][s] for s in profiling.TRAIN_SPANS)
+    row["profile_train_bf16"]["spans_share_of_busy"] = \
+        spans / prof["total_ms"]
+    row["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"train_igrs": row}), flush=True)
+    assert row["fixture_fp32"]["ok"], row["fixture_fp32"]
+    return row
+
 
 def main() -> int:
     import torch
@@ -1008,8 +1242,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     fixture_phase(torch, np, fb, st, here)
     torch.cuda.empty_cache()
-    cli = cli_phase(np, fb, st)
-    print(json.dumps({"cli": cli}), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli, root, pred_dir = cli_phase(np, fb, st, tmp)
+        print(json.dumps({"cli": cli}), flush=True)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _write_train_split(np, root)
+        out = os.path.join(tmp, "train_out")
+        ckpt_dir = train_lifter_phase(torch, np, root, out, card)
+        train_igrs_phase(torch, np, here, root, pred_dir, ckpt_dir, out,
+                         card)
+        print(json.dumps({"training_phases_s": time.perf_counter() - t0,
+                          "card": card}), flush=True)
     torch.cuda.empty_cache()
     bench_phase()
     torch.cuda.empty_cache()

@@ -1,11 +1,13 @@
-"""Configuration: the shipped demo config as a Python dict, YAML loading
-and the entry points' command line.
+"""Configuration: the shipped demo and training configs as Python dicts,
+YAML loading and the entry points' command line.
 
-A GPU host may lack PyYAML, so :func:`demo_config` needs no
-YAML at all and :func:`load_config` imports ``yaml`` only when called (by
-:func:`parse_args`, when ``--cfg`` is read).  The dict below equals
-``yaml.safe_load`` of ``egonet_tpu/configs/KITTI_inference_demo.yml``
-(asserted by the tests).
+A GPU host may lack PyYAML, so :func:`demo_config`,
+:func:`train_lifting_config` and :func:`train_igrs_config` need no YAML at
+all and :func:`load_config` imports ``yaml`` only when called (by
+:func:`parse_args`, when ``--cfg`` is read).  The dicts below equal
+``yaml.safe_load`` of ``egonet_tpu/configs/KITTI_inference_demo.yml``,
+``KITTI_train_lifting.yml`` and ``KITTI_train_IGRs.yml`` (asserted by the
+tests).
 """
 
 from __future__ import annotations
@@ -99,9 +101,153 @@ _DEMO = {
 }
 
 
+_TRAIN_DIRS = {"output": "./outputs/training_record",
+               "debug": "./outputs/training_record/debug"}
+_INTERP = {"flag": True, "style": "bbox12", "coef": [0.332, 0.667]}
+
+_TRAIN_LIFTING = {
+    "name": "lifter",
+    "exp_type": "2dto3d",
+    "model_type": "FCModel",
+    "train": True,
+    "save": True,
+    "visualize": False,
+    "evaluate": False,
+    "dirs": _TRAIN_DIRS,
+    "metrics": {"R3D": {"T_style": "direct", "R_style": "euler"}},
+    "dataset": {
+        "name": "KITTI",
+        "detect_classes": ["Car"],
+        "3d_kpt_sample_style": "bbox9",
+        "interpolate": _INTERP,
+        "pre-process": False,
+        "root": "./data/KITTI",
+        "lft_in_rep": "coordinates2d",
+        "lft_out_rep": "R3d",
+    },
+    "cascade": {"num_stages": 1},
+    "FCModel": {
+        "name": "lifter",
+        "refine_3d": False,
+        "norm_twoD": False,
+        "num_blocks": 2,
+        "num_neurons": 1024,
+        "dropout": 0.5,
+        "leaky": False,
+        "loss_type": "MSELoss1D",
+        "loss_reduction": "mean",
+    },
+    "heatmapModel": {"num_joints": 33},
+    "training_settings": {
+        "total_epochs": 300,
+        "eval_start_epoch": 250,
+        "resume": False,
+        "batch_size": 2048,
+        "num_threads": 4,
+        "shuffle": True,
+        "pin_memory": False,
+        "report_every": 500,
+        "eval_every": 500,
+        "eval_during": False,
+        "lft_aug": True,
+        "lft_aug_times": 100,
+        "eval_metrics": ["RError3D"],
+        "plot_loss": False,
+    },
+    "testing_settings": {"apply_dropout": False, "unnormalize": True,
+                         "batch_size": 1024, "num_threads": 4,
+                         "shuffle": False},
+    "optimizer": {"optim_type": "adam", "lr": 0.001, "weight_decay": 0.0,
+                  "momentum": 0.9, "milestones": [50, 100, 150, 250],
+                  "gamma": 0.5},
+}
+
+_TRAIN_IGRS = {
+    "name": "kitti_kpt_loc",
+    "exp_type": "instanceto2d",
+    "model_type": "heatmapModel",
+    "train": True,
+    "save": True,
+    "visualize": False,
+    "evaluate": False,
+    "dirs": _TRAIN_DIRS,
+    "dataset": {
+        "name": "KITTI",
+        "detect_classes": ["Car"],
+        "3d_kpt_sample_style": "bbox9",
+        "interpolate": _INTERP,
+        "pre-process": False,
+        "root": "./data/KITTI",
+        "scaling_factor": 0.2,
+        "rotation_factor": 30.0,
+        "pth_transform": {"mean": [0.485, 0.456, 0.406],
+                          "std": [0.229, 0.224, 0.225]},
+        "2d_kpt_style": "bbox9",
+    },
+    "ss": {"flag": False, "record_path": "", "img_root": "",
+           "max_per_img": 6},
+    "heatmapModel": {
+        "name": "hrnet",
+        "add_xy": False,
+        "jitter_bbox": True,
+        "jitter_params": {"shift": [0.1, 0.1], "scaling": [0.4, 0.4]},
+        "input_size": [256, 256],
+        "augment_input": True,
+        "head_type": "coordinates",
+        "pixel_shuffle": False,
+        "heatmap_size": [64, 64],
+        "loss_type": "JointsCompositeLoss",
+        "loss_spec_list": ["mse", "l1", "sl1"],
+        "loss_weight_list": [1.0, 0.1, "None"],
+        "cr_loss_threshold": 0.15,
+        "init_weights": True,
+        "num_joints": 33,
+        "pretrained": "./resources/start_point.pth",
+        "target_type": "gaussian",
+        "sigma": 1,
+        "extra": _DEMO["heatmapModel"]["extra"],
+    },
+    "training_settings": {
+        "total_epochs": 45,
+        "resume": False,
+        "batch_size": 24,
+        "num_threads": 16,
+        "shuffle": True,
+        "pin_memory": False,
+        "use_target_weight": False,
+        "report_every": 30,
+        "eval_every": 130,
+        "eval_during": False,
+        "eval_metrics": ["JointDistance2DSIP"],
+        "plot_loss": False,
+        "snapshot_epochs": [],
+        "debug": {"save": True, "save_images_kpts": True,
+                  "save_hms_gt": True, "save_hms_pred": True},
+    },
+    "testing_settings": {"batch_size": 2, "num_threads": 4,
+                         "shuffle": False, "pin_memory": False,
+                         "apply_dropout": False, "unnormalize": False,
+                         "eval_metrics": ["JointDistance2DSIP"]},
+    "optimizer": {"optim_type": "adam", "lr": 0.001, "weight_decay": 0.0,
+                  "momentum": 0.9, "milestones": [10, 20, 30, 40],
+                  "gamma": 0.5},
+}
+
+
 def demo_config() -> dict:
     """The shipped W48 inference configuration, as a fresh dict."""
     return copy.deepcopy(_DEMO)
+
+
+def train_lifting_config() -> dict:
+    """The shipped lifter training configuration, as a fresh dict."""
+    return copy.deepcopy(_TRAIN_LIFTING)
+
+
+def train_igrs_config() -> dict:
+    """The shipped HRNet-W48 IGR training configuration, as a fresh
+    dict."""
+    return copy.deepcopy(_TRAIN_IGRS)
 
 
 def load_config(path: str) -> dict:

@@ -1,7 +1,8 @@
-"""Constants the inference slice reads (copy of the matching parts of
-``egonet_tpu/constants.py``): the crop-scale convention, the KITTI label
-schema, the cuboid edge interpolation table, ImageNet statistics and the
-add_xy 0-255 quirk."""
+"""Constants the port reads (copy of the matching parts of
+``egonet_tpu/constants.py``): the crop-scale convention, the instance cap
+of a training batch, the KITTI label schema, the cuboid edge
+interpolation table, the cross-ratio gather table and target, ImageNet
+statistics and the add_xy 0-255 quirk."""
 
 from __future__ import annotations
 
@@ -9,6 +10,10 @@ import numpy as np
 
 # Scale convention: a crop "scale" of s covers s*SIZE source pixels.
 SIZE = 200.0
+
+# Instances per IGR training batch: the loader pads to it (duplicating real
+# instances) and subsamples above it.
+MAX_INS_CNT = 140
 
 TYPE_ID_CONVERSION = {
     "Car": 0,
@@ -43,6 +48,27 @@ INTERP_DICT = {
     "bbox12h": (np.array([1, 3, 5, 7]), np.array([2, 4, 6, 8])),
     "bbox12w": (np.array([1, 2, 5, 6]), np.array([3, 4, 7, 8])),
 }
+
+# For each of the 12 edges: [parent, first interpolated point, second
+# interpolated point, child] as 0-based indices into the 33-point keypoint
+# array [center, corner1..corner8, interp1(12), interp2(12)].
+CR_INDICES = np.array(
+    [[1,  9, 21,  2],
+     [3, 10, 22,  4],
+     [5, 11, 23,  6],
+     [7, 12, 24,  8],
+     [1, 13, 25,  5],
+     [2, 14, 26,  6],
+     [3, 15, 27,  7],
+     [4, 16, 28,  8],
+     [1, 17, 29,  3],
+     [2, 18, 30,  4],
+     [5, 19, 31,  7],
+     [6, 20, 32,  8]]
+)
+
+# The target cross-ratio of 4 points [p, p+0.332*(c-p), p+0.667*(c-p), c].
+TARGET_CROSS_RATIO = 4.0 / 3.0
 
 # Interpolation coefficients used by every shipped config.
 DEFAULT_INTERP_COEF = (0.332, 0.667)

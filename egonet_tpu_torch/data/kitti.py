@@ -1,12 +1,13 @@
-"""KITTI dataset layer, inference half (port of ``egonet_tpu/data/kitti.py``):
-label and calibration parsing, the projection of labeled cuboids to
-screen keypoints, the directory layout, and the per-image annotation
-records the inference CLI reads (ground-truth boxes and external-detector
-predictions).
+"""KITTI dataset layer (port of ``egonet_tpu/data/kitti.py``): label and
+calibration parsing, the projection of labeled cuboids to screen
+keypoints, the directory layout, the per-image annotation records the
+inference CLI reads (ground-truth boxes and external-detector
+predictions), and the training data: per-image keypoint records for the
+IGR model ('instanceto2d'), in-RAM normalized (input, output) pairs for
+the lifter ('2dto3d') and finetuning records ('finetune').
 
 Image sizes come from the PNG header (:func:`png.image_size`), so no image
-library is needed.  The training experiment types ('instanceto2d',
-'2dto3d', 'finetune', ...) are not ported yet and raise.
+library is needed.
 """
 
 from __future__ import annotations
@@ -166,6 +167,24 @@ def get_2d_3d_pairs(label_path: str,
     return out
 
 
+def to_lifter_representation(kpts_2d, kpts_3d, out_rep: str = "R3d"):
+    """Input / output vectors for the lifter.  'R3d': output = the 32
+    points relative to the first (center) point; 'R3d+T': [root, 32
+    relative points].  The input is the flattened (u, v) coordinates.
+    Returns (input [66], output [96 or 99], root [1, 3])."""
+    inp = np.asarray(kpts_2d)[:, :2].reshape(-1).astype(np.float64)
+    p3d = np.asarray(kpts_3d)
+    root = p3d[[0], :]
+    rel = p3d[1:, :] - root
+    if out_rep == "R3d":
+        out = rel.reshape(-1)
+    elif out_rep == "R3d+T":
+        out = np.concatenate([root, rel], axis=0).reshape(-1)
+    else:
+        raise NotImplementedError(out_rep)
+    return inp, out, root
+
+
 # ---------------------------------------------------------------------------
 # split / directory layout
 # ---------------------------------------------------------------------------
@@ -215,27 +234,72 @@ def image_size_of(path: str):
 # ---------------------------------------------------------------------------
 
 class KITTIDataset:
-    """KITTI data facade.  exp_type 'inference' -> per-image annotation
-    records (GT boxes, K, raw txt) in ``annot_dict``; the training types
-    are not ported yet."""
+    """Experiment-aware KITTI data facade.
+
+    exp_type:
+      'inference'    -> per-image annotation records (GT boxes, K, raw txt)
+                        in ``annot_dict``
+      'instanceto2d' -> per-image keypoint / box records for IGR training
+                        (also 'baselinealpha', 'baselinetheta')
+      '2dto3d'       -> in-RAM (input, output) pairs for lifter training
+      'finetune'     -> annotation records plus finetuning ``records``
+    """
 
     def __init__(self, cfgs: dict, split: str, logger=None):
         self.cfgs = cfgs
         self.split = split
         self.logger = logger
         self.exp_type = cfgs["exp_type"]
-        if self.exp_type != "inference":
-            raise NotImplementedError(
-                f"exp_type {self.exp_type!r} is not ported yet (queued); the "
-                "port reads KITTI for inference only")
         self.classes = tuple(cfgs["dataset"]["detect_classes"])
         interp = cfgs["dataset"].get("interpolate", {})
         self.interp_coef = tuple(interp.get("coef", DEFAULT_INTERP_COEF))
         self.paths = KITTIPaths(cfgs["dataset"]["root"], split)
+        self.enlarge_factor = cfgs["dataset"].get("enlarge_factor", 1.1)
+        self.statistics = None
         self._log(f"Initializing KITTI {split} set ({self.exp_type})")
-        self.annot_dict = self.gather_annotations()
-        self.image_names = list(self.annot_dict.keys())
+        if self.exp_type == "inference":
+            self.annot_dict = self.gather_annotations()
+            self.image_names = list(self.annot_dict.keys())
+        elif self.exp_type in ("instanceto2d", "baselinealpha",
+                               "baselinetheta"):
+            self.records = self._prepare_instance_records(cfgs)
+        elif self.exp_type == "2dto3d":
+            self._prepare_lifting_pairs(cfgs)
+        elif self.exp_type == "finetune":
+            self.annot_dict = self.gather_annotations(
+                add_gt=True, filter_outlier=True, use_raw_bbox=False)
+            self.image_names = list(self.annot_dict.keys())
+            self.records = self._finetune_records()
+        else:
+            raise NotImplementedError(self.exp_type)
+
+        # optional weak self-supervision from unlabeled images
+        self.ss_record = None
+        if cfgs.get("ss", {}).get("flag"):
+            self.ss_record = np.load(cfgs["ss"]["record_path"],
+                                     allow_pickle=True).item()
+            self.ss_img_root = cfgs["ss"]["img_root"]
+            self.ss_max_per_img = int(cfgs["ss"].get("max_per_img", 6))
         self._log(f"KITTI {split} set ready")
+
+    def _finetune_records(self) -> list:
+        """Per-image records for end-to-end finetuning: GT keypoints, boxes
+        derived from projected cuboids, 3D targets and intrinsics."""
+        records = []
+        for name in self.image_names:
+            rec = self.annot_dict[name]
+            if "kpts" not in rec:
+                continue
+            records.append({
+                "path": self.paths.image_path(name),
+                "boxes": rec["bbox_2d"],
+                "kpts": rec["kpts"][:, :, :2],
+                "kpts_vis": rec["kpts"][:, :, 2],
+                "kpts_3d": rec["kpts_3d_gt"],
+                "K": rec["K"],
+                "pose_vecs": rec.get("pose_vecs_gt"),
+            })
+        return records
 
     def _log(self, msg):
         if self.logger is not None:
@@ -314,8 +378,129 @@ class KITTIDataset:
                 records[image_name] = rec
         return records
 
+    # -------------------- IGR training --------------------
+
+    def _instance_record_cache_path(self):
+        """Cache file of the prepared keypoint records (the enlarge factor
+        is part of the key: the records embed boxes computed with it)."""
+        coef = "".join(f"{c:g}" for c in self.interp_coef)
+        name = (f"records_bbox12_{coef}_e{self.enlarge_factor:g}_"
+                f"{self.split}_{'-'.join(self.classes)}.npy")
+        return pjoin(self.paths.keypoint_dir, name)
+
+    def _prepare_instance_records(self, cfgs,
+                                  visibility_threshold: int = 4) -> list:
+        """Per-image training records: image path, instance boxes (from the
+        projected keypoints), keypoints and gt rotations; cached as .npy
+        next to the dataset when ``dataset.pre-process`` is set."""
+        cache = self._instance_record_cache_path()
+        if os.path.exists(cache):
+            self._log(f"Found prepared keypoints at {cache}")
+            return list(np.load(cache, allow_pickle=True))
+        records = []
+        for name in self.paths.image_names():
+            img_path = self.paths.image_path(name)
+            try:
+                img_size = image_size_of(img_path)
+            except FileNotFoundError:
+                continue
+            pairs = get_2d_3d_pairs(
+                self.paths.label_path(name), self.paths.calib_path(name),
+                classes=self.classes, img_size=img_size,
+                interp_coef=self.interp_coef, filter_outlier=True,
+                visibility_threshold=0.25)
+            boxes, kpts, rots = [], [], []
+            for i, kp in enumerate(pairs["kpts_2d"]):
+                if kp[:, 2].sum() < visibility_threshold:
+                    continue
+                pts = kp[:, :2]
+                c, s, _, _ = affine.kpts2cs(pts, enlarge=self.enlarge_factor)
+                boxes.append(np.array(
+                    list(map(int, affine.cs2bbox(c, s)))).reshape(1, 4))
+                kpts.append(pts[None])
+                rots.append(pairs["rotations"][i].reshape(1, 2))
+            if not boxes:
+                continue
+            records.append({
+                "path": img_path,
+                "boxes": np.concatenate(boxes),
+                "kpts": np.concatenate(kpts),
+                "rots": np.concatenate(rots),
+            })
+        if cfgs["dataset"].get("pre-process", False):
+            try:
+                os.makedirs(os.path.dirname(cache), exist_ok=True)
+                np.save(cache, np.array(records, dtype=object))
+                self._log(f"Saved prepared keypoints at {cache}")
+            except OSError:
+                pass
+        return records
+
+    # -------------------- lifter training --------------------
+
+    def _prepare_lifting_pairs(self, cfgs):
+        """``input`` / ``output`` float32 arrays and ``roots``; the train
+        split is augmented (``lft_aug`` x ``lft_aug_times`` perturbed poses,
+        random yaw) from ``RandomState(cfgs['seed'])``."""
+        ts = cfgs.get("training_settings", {})
+        augment = bool(ts.get("lft_aug", False)) and self.split == "train"
+        augment_times = int(ts.get("lft_aug_times", 1))
+        out_rep = cfgs["dataset"].get("lft_out_rep", "R3d")
+        rng = np.random.RandomState(cfgs.get("seed", 0))
+        inputs, outputs, roots = [], [], []
+        for name in self.paths.image_names():
+            try:
+                img_size = image_size_of(self.paths.image_path(name))
+            except FileNotFoundError:
+                img_size = (1242, 375)
+            pairs = get_2d_3d_pairs(
+                self.paths.label_path(name), self.paths.calib_path(name),
+                classes=self.classes, img_size=img_size,
+                interp_coef=self.interp_coef,
+                augment=augment, augment_times=augment_times,
+                random_yaw=(self.split == "train"), rng=rng)
+            for kp2, kp3 in zip(pairs["kpts_2d"], pairs["kpts_3d"]):
+                inp, out, root = to_lifter_representation(kp2, kp3, out_rep)
+                inputs.append(inp)
+                outputs.append(out)
+                roots.append(root)
+        self.input = np.asarray(inputs, dtype=np.float32)
+        self.output = np.asarray(outputs, dtype=np.float32)
+        self.roots = np.concatenate(roots) if roots else np.zeros((0, 3))
+
+    def normalize(self, statistics: dict | None = None):
+        """Standardize the pairs; computes the statistics (the LS.npy
+        contents) when not given."""
+        if statistics is None:
+            statistics = {
+                "mean_in": self.input.mean(axis=0, keepdims=True),
+                "std_in": self.input.std(axis=0, keepdims=True),
+                "mean_out": self.output.mean(axis=0, keepdims=True),
+                "std_out": self.output.std(axis=0, keepdims=True),
+            }
+        self.statistics = statistics
+        self.input = (self.input - statistics["mean_in"]) / statistics["std_in"]
+        self.output = ((self.output - statistics["mean_out"])
+                       / statistics["std_out"])
+        return statistics
+
     def __len__(self):
-        return len(self.image_names)
+        if self.exp_type == "inference":
+            return len(self.image_names)
+        if self.exp_type == "2dto3d":
+            return len(self.input)
+        return len(self.records)
+
+
+def prepare_data(cfgs: dict, logger=None):
+    """(train, valid) dataset pair; the lifter statistics come from the
+    train split."""
+    train_set = KITTIDataset(cfgs, "train", logger)
+    valid_set = KITTIDataset(cfgs, "valid", logger)
+    if cfgs["exp_type"] == "2dto3d":
+        stats = train_set.normalize()
+        valid_set.normalize(stats)
+    return train_set, valid_set
 
 
 def get_dataset(cfgs: dict, logger=None, split: str = "valid"):

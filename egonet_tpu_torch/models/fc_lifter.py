@@ -5,7 +5,10 @@ Linear(in, 1024) + BN + ReLU + Dropout, N residual blocks
 (Linear-BN-ReLU-Drop x 2 with a skip), Linear(1024, out).  Module names
 equal the reference ``state_dict`` keys (w1, batch_norm1, res_blocks.{i}.w1,
 ..., w2).  Linears run in the compute dtype; batch norm runs on fp32
-statistics; the output is fp32.
+statistics (fp64 in an fp64 model, whose parameters are fp64) with the JAX
+package's train-mode rule (``layers.batch_norm``); the output is fp32
+(fp64).  Dropout draws its mask from a ``torch.Generator`` when one is
+given.
 """
 
 from __future__ import annotations
@@ -13,6 +16,17 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from egonet_tpu_torch.models.layers import batch_norm
+
+
+def dropout(x, p: float, generator: torch.Generator | None):
+    """Inverted dropout (keep with probability 1-p, scale by 1/(1-p)), the
+    mask drawn from ``generator`` (torch's global stream when None)."""
+    if p <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 class _ResBlock(nn.Module):
@@ -37,6 +51,9 @@ class FCModel(nn.Module):
         self.res_blocks = nn.ModuleList(
             [_ResBlock(num_neurons) for _ in range(num_blocks)])
         self.w2 = nn.Linear(num_neurons, output_size)
+        self.stat_dtype = torch.promote_types(torch.float32, dtype)
+        if dtype == torch.float64:
+            self.double()
 
     def _act(self, x):
         return F.leaky_relu(x) if self.leaky else torch.relu(x)
@@ -45,25 +62,25 @@ class FCModel(nn.Module):
         return F.linear(x, m.weight.to(self.dtype), m.bias.to(self.dtype))
 
     def _bn(self, m: nn.BatchNorm1d, x):
-        y = F.batch_norm(x.float(), m.running_mean, m.running_var, m.weight,
-                         m.bias, m.training, m.momentum, m.eps)
-        return y.to(self.dtype)
+        return batch_norm(m, x, self.stat_dtype).to(self.dtype)
 
-    def forward(self, x, apply_dropout: bool | None = None):
+    def forward(self, x, apply_dropout: bool | None = None,
+                generator: torch.Generator | None = None):
         """``apply_dropout=True`` keeps dropout stochastic while BN uses
-        running statistics (the dropout-at-test evaluation option)."""
+        running statistics (the dropout-at-test evaluation option);
+        ``generator`` draws the dropout masks."""
         drop = self.training if apply_dropout is None else bool(apply_dropout)
-        p = self.p_dropout
+        p = self.p_dropout if drop else 0.0
         x = x.to(self.dtype)
         y = self._act(self._bn(self.batch_norm1, self._dense(self.w1, x)))
-        y = F.dropout(y, p, training=drop)
+        y = dropout(y, p, generator)
         for blk in self.res_blocks:
             z = self._act(self._bn(blk.batch_norm1, self._dense(blk.w1, y)))
-            z = F.dropout(z, p, training=drop)
+            z = dropout(z, p, generator)
             z = self._act(self._bn(blk.batch_norm2, self._dense(blk.w2, z)))
-            z = F.dropout(z, p, training=drop)
+            z = dropout(z, p, generator)
             y = y + z
-        return self._dense(self.w2, y).float()
+        return self._dense(self.w2, y).to(self.stat_dtype)
 
 
 def build_fc_model(cfgs: dict, dtype=torch.float32) -> FCModel:

@@ -21,8 +21,15 @@ function (their plain version on the CPU):
   kernel, selected by ``EGONET_PALLAS_STENCIL=1`` (or ``'auto'``: when its
   probe passes), or by ``prepare_inference(stencil="1")``.
 
-Train mode, fp32 runs, stride-2 and downsampling blocks stay unfused torch
-ops (cuDNN).
+Train mode, fp32 and fp64 runs, stride-2 and downsampling blocks stay
+unfused torch ops (cuDNN).
+
+Train mode follows the JAX package's batch norm: each layer normalizes
+with the biased batch statistics and moves its running variance with the
+biased batch variance (``torch.nn.functional.batch_norm`` alone would
+move it with the unbiased one; see ``layers.batch_norm``).  A float64
+model keeps float64 parameters and computes every layer, batch norm and
+head in float64.
 
 Not ported yet (raise NotImplementedError): the 'heatmap' and
 'angleregression' heads, ``fuse_merge`` and ``act_quant``.
@@ -35,6 +42,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from egonet_tpu_torch.models.layers import batch_norm
 from egonet_tpu_torch.ops import fused_block, fused_block_stencil
 
 BN_MOMENTUM = 0.1
@@ -83,10 +91,12 @@ def _conv_bn(cin, cout, k, stride=1, padding=None):
 class _Ops:
     """The primitive layers, parameterized by the compute dtype, an
     optional table of pre-cast weights and the choice of fused-block kernel
-    (see ``prepare_inference``)."""
+    (see ``prepare_inference``).  Batch norm runs in fp32 for fp32 and
+    bf16 models, in fp64 for fp64 ones."""
 
     def __init__(self, dtype, cast, stencil=False):
         self.dtype = dtype
+        self.stat_dtype = torch.promote_types(torch.float32, dtype)
         self.cast = cast or {}
         self.stencil = stencil
 
@@ -104,9 +114,7 @@ class _Ops:
         return F.conv2d(x, w, b, m.stride, m.padding)
 
     def bn(self, m: nn.BatchNorm2d, x):
-        y = F.batch_norm(x.float(), m.running_mean, m.running_var, m.weight,
-                         m.bias, m.training, m.momentum, m.eps)
-        return y.to(self.dtype)
+        return batch_norm(m, x, self.stat_dtype).to(self.dtype)
 
     def conv_bn(self, seq: nn.Sequential, x):
         return self.bn(seq[1], self.conv(seq[0], x))
@@ -241,8 +249,9 @@ class PoseHighResolutionNet(nn.Module):
     """HRNet-W48/W32 with the EgoNet 'coordinates' head.
 
     ``forward(x)`` takes NCHW normalized crops and returns (maps
-    [N, K, Hh, Wh] fp32, coords [N, K, 2] fp32 in [0, 1]).  ``dtype`` is
-    the compute dtype; parameters stay fp32."""
+    [N, K, Hh, Wh], coords [N, K, 2] in [0, 1]), both fp32 (fp64 for an
+    fp64 model).  ``dtype`` is the compute dtype; parameters are fp32,
+    except in an fp64 model, whose parameters are fp64."""
 
     def __init__(self, stage2: StageCfg, stage3: StageCfg, stage4: StageCfg,
                  num_joints=33, head_type="coordinates",
@@ -292,6 +301,8 @@ class PoseHighResolutionNet(nn.Module):
                      (1, map_w))
         self.register_buffer("coor", torch.from_numpy(np.stack([xs, ys])),
                              persistent=False)                  # [2, H, W]
+        if dtype == torch.float64:
+            self.double()
 
     @staticmethod
     def _transition(pre_widths, cur_widths):
@@ -409,8 +420,8 @@ class PoseHighResolutionNet(nn.Module):
         for b in range(4):
             h = self.head2[b].run(ops, h)
         h = ops.conv(self.head2[4], h)
-        coords = torch.sigmoid(h.float()).reshape(n, -1, 2)    # [N, K, 2]
-        return maps.float(), coords
+        coords = torch.sigmoid(h.to(ops.stat_dtype)).reshape(n, -1, 2)
+        return maps.to(ops.stat_dtype), coords                 # [N, K, 2]
 
 
 def build_hrnet(cfgs: dict, dtype=torch.float32) -> PoseHighResolutionNet:

@@ -170,3 +170,84 @@ def fixture_gaps(out: dict, ref: dict) -> dict:
         if key in out and key in ref:
             gaps[f"max_rel_d_{key}"] = _rel_gap(out[key], ref[key])
     return gaps
+
+
+# ---------------------------------------------------------------------------
+# The IGR train step at full width, held against the JAX package's
+# (tests/data/torch_train_fixture.npz, tests/test_torch_train_fixture.py,
+# chip_smoke.py's train_igrs phase)
+
+# the top-level stages whose gradient norm the fixture records
+TRAIN_STAGES = ("conv1", "bn1", "conv2", "bn2", "layer1", "transition1",
+                "stage2", "transition2", "stage3", "transition3", "stage4",
+                "head1", "head2")
+# batch-norm layers whose updated running statistics it records
+TRAIN_BN = ("bn1", "layer1.3.bn3", "stage2.0.branches.1.3.bn2",
+            "stage3.3.branches.2.3.bn2", "stage4.2.branches.3.3.bn2",
+            "head2.3.bn2")
+
+
+def train_fixture_batch(cfgs: dict, n_instances: int = 2, seed: int = 0):
+    """A host IGR batch: the harness's frame and boxes
+    (:func:`harness_inputs`), each box's patch->source affine (aspect
+    fixed as the loader does) and random crop-frame joints, all slots
+    real."""
+    images, boxes = harness_inputs(n_instances, seed)
+    w, h = cfgs["heatmapModel"]["input_size"]
+    inv = []
+    for b in boxes:
+        ret = affine.resize_bbox(*b, target_ar=h / w)
+        inv.append(affine.get_affine_transform(ret["c"], ret["s"], 0.0,
+                                               (h, w), inv=True))
+    rng = np.random.RandomState(seed + 100)
+    joints = np.concatenate(
+        [rng.uniform(8, min(w, h) - 8, (n_instances, 33, 2)),
+         np.ones((n_instances, 33, 1))], axis=2)
+    return {"images": images,
+            "inv_mats": np.asarray(inv, np.float32),
+            "img_idx": np.zeros(n_instances, np.int32),
+            "joints": joints.astype(np.float32),
+            "mask": np.ones(n_instances, np.float32),
+            "sup_mask": np.ones(n_instances, np.float32),
+            "img_wh": np.tile(np.array([[1280.0, 384.0]], np.float32),
+                              (n_instances, 1))}
+
+
+def train_step_outputs(trainer, state, batch) -> dict:
+    """One forward / backward of ``trainer`` (cross-ratio off) on a host
+    batch, without the optimizer step: the loss and its components, the
+    gradient norm of each of :data:`TRAIN_STAGES` and the updated running
+    statistics of :data:`TRAIN_BN`, float64 numpy."""
+    model = state.model
+    model.train()
+    model.zero_grad(set_to_none=True)
+    total, comps = trainer.loss_fn(model, trainer._device_batch(batch),
+                                   False)
+    total.backward()
+    sq = dict.fromkeys(TRAIN_STAGES, 0.0)
+    for name, p in model.named_parameters():
+        if p.grad is not None:
+            sq[name.split(".")[0]] += float(p.grad.double().square().sum())
+    out = {"loss": float(total.detach()),
+           **{k: float(v.detach()) for k, v in comps.items()},
+           "grad_norms": np.sqrt([sq[s] for s in TRAIN_STAGES])}
+    for name in TRAIN_BN:
+        bn = model.get_submodule(name)
+        for stat in ("running_mean", "running_var"):
+            out[f"{name}.{stat}"] = getattr(bn, stat).double().cpu().numpy()
+    return out
+
+
+def train_gaps(out: dict, ref: dict) -> dict:
+    """Relative gaps of :func:`train_step_outputs` ``out`` against ``ref``:
+    the loss and each component, the largest over the stages' gradient
+    norms, and the largest over the BN layers of the running statistics'
+    largest gap relative to their largest entry."""
+    gaps = {k: abs(out[k] - ref[k]) / abs(ref[k])
+            for k in ("loss", "hm", "coor")}
+    gaps["grad_norms"] = float(np.max(
+        np.abs(out["grad_norms"] - ref["grad_norms"]) / ref["grad_norms"]))
+    gaps["bn_stats"] = max(
+        float(np.abs(out[k] - ref[k]).max() / np.abs(ref[k]).max())
+        for k in ref if k.endswith(("running_mean", "running_var")))
+    return gaps

@@ -3,7 +3,9 @@ device category, kernel, facade stage and idle gap (port of
 ``egonet_tpu/utils/profiling.py``).
 
 The facade (``models/egonet.py``) wraps each stage of a batch in a named
-range, ``span(name)``, one of :data:`SPANS`.  A range costs about a
+range, ``span(name)``, one of :data:`SPANS`; the IGR trainer
+(``train/igrs.py``) wraps each stage of a step in one of
+:data:`TRAIN_SPANS`.  A range costs about a
 microsecond on the host when no profiler runs.  Under :func:`trace` on the
 card, CUPTI ties every kernel and copy to the host call that launched it,
 so :func:`summarize_trace` can give each stage its device time, the way the
@@ -38,14 +40,29 @@ import torch
 SPANS = ("host_prep", "h2d", "warp", "normalize", "hrnet", "inverse_affine",
          "lifter", "rigid", "alpha", "d2h", "finalize")
 
+# The IGR train step's stages, in order:
+#   h2d        the pinned host->device copies of the batch
+#   warp       the separable crop warp of every instance
+#   normalize  crop normalization (mean / std)
+#   forward    the train-mode HRNet forward
+#   targets    the Gaussian heatmap targets
+#   loss       the composite loss
+#   backward   autograd's backward pass (its kernels launch from autograd's
+#              own thread while this range is open on the caller's)
+#   optimizer  the Adam / SGD update
+TRAIN_SPANS = ("h2d", "warp", "normalize", "forward", "targets", "loss",
+               "backward", "optimizer")
+
 TRACE_FILE = "trace.json"
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def span(name: str):
-    """The named range of one facade stage (``name`` must be in SPANS)."""
-    if name not in SPANS:
-        raise ValueError(f"unknown span {name!r}; SPANS = {SPANS}")
+    """The named range of one facade or train-step stage (``name`` must be
+    in SPANS or TRAIN_SPANS)."""
+    if name not in SPANS and name not in TRAIN_SPANS:
+        raise ValueError(f"unknown span {name!r}; SPANS = {SPANS}, "
+                         f"TRAIN_SPANS = {TRAIN_SPANS}")
     return torch.profiler.record_function(name)
 
 
@@ -158,10 +175,11 @@ def _merge(intervals):
     return out
 
 
-def summarize_trace(log_dir: str, iters: int = 1) -> dict:
+def summarize_trace(log_dir: str, iters: int = 1, spans=SPANS) -> dict:
     """Aggregate ``<log_dir>/trace.json`` (written by :func:`trace`).
     ``iters``: how many identical steps the trace covers (times and counts
-    are divided by it).
+    are divided by it); ``spans``: the stage names to charge time to
+    (:data:`SPANS`, or :data:`TRAIN_SPANS` for a train step).
 
     Returns {'total_ms': device busy ms per step (on the CPU: the window's
     ms), 'window_ms', 'by_category': [(category, ms)],
@@ -174,8 +192,9 @@ def summarize_trace(log_dir: str, iters: int = 1) -> dict:
     with open(os.path.join(log_dir, TRACE_FILE)) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X" and "dur" in e]
+    names = tuple(spans)
     spans = [e for e in events if e.get("cat") == "user_annotation"
-             and e["name"] in SPANS]
+             and e["name"] in names]
     dev = [e for e in events if e.get("cat") in _DEVICE_CATS]
     everything = spans + dev + [e for e in events
                                 if e.get("cat") == "cpu_op"]
@@ -193,10 +212,10 @@ def summarize_trace(log_dir: str, iters: int = 1) -> dict:
         hits = [iv.at(ts) for iv in host.values()]
         return next((h for h in hits if h), None)
 
-    host_by_span = dict.fromkeys(SPANS, 0.0)
+    host_by_span = dict.fromkeys(names, 0.0)
     for e in spans:
         host_by_span[e["name"]] += e["dur"] / 1e3 / iters
-    by_span = dict.fromkeys(SPANS, 0.0)
+    by_span = dict.fromkeys(names, 0.0)
     if not dev:                                   # CPU-only trace
         by_span = host_by_span
         total, by_cat, by_kernel, idle = window, [], [], None
@@ -212,7 +231,7 @@ def summarize_trace(log_dir: str, iters: int = 1) -> dict:
                     launch[corr] = e
         gpu_ann = _Intervals([e for e in events
                               if e.get("cat") == "gpu_user_annotation"
-                              and e["name"] in SPANS])
+                              and e["name"] in names])
         cat_ms = collections.Counter()
         cat_n = collections.Counter()
         kern_ms = collections.Counter()

@@ -51,12 +51,25 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 
 def test_entry_point_defaults_to_cuda_and_raises_without_it(monkeypatch):
-    from egonet_tpu_torch.config import demo_config
+    from egonet_tpu_torch.config import (demo_config, train_igrs_config,
+                                         train_lifting_config)
     from egonet_tpu_torch.device import resolve_device
     from egonet_tpu_torch.models.egonet import EgoNet
+    from egonet_tpu_torch.tools import train_igrs, train_lifting
+    from egonet_tpu_torch.train.igrs import IGRTrainer
+    from egonet_tpu_torch.train.lifting import LiftingTrainer
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         EgoNet(demo_config())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LiftingTrainer(train_lifting_config())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        IGRTrainer(train_igrs_config())
+    # the CLIs resolve the device before reading any data
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_lifting.main(cfgs=train_lifting_config())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_igrs.main(cfgs=train_igrs_config())
     assert resolve_device("cpu") == torch.device("cpu")

@@ -23,10 +23,8 @@ import os
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 from egonet_tpu_torch import precision
-from egonet_tpu_torch.models import hrnet
 from egonet_tpu_torch.config import demo_config
 from tests import fixtures
 
@@ -215,20 +213,14 @@ def test_planted_fault_fails_the_bars(fault):
 @pytest.fixture(scope="module")
 def fullwidth_fp64():
     """The port's full-width W48 in fp64 on the CPU (the yardstick of fp32
-    rounding; only the head's final sigmoid stays fp32)."""
-    def bn_fp64(ops, m, x):                  # the model's BN runs in fp32
-        return F.batch_norm(x.double(), m.running_mean, m.running_var,
-                            m.weight, m.bias, m.training, m.momentum,
-                            m.eps).to(ops.dtype)
-
+    rounding: an fp64 model keeps fp64 parameters and runs every layer,
+    batch norm and head in fp64)."""
     torch.set_num_threads(2)
     outs = []
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(hrnet._Ops, "bn", bn_fp64)
-        for s in SEEDS:
-            model = precision.harness_model(torch.float64, s, device="cpu")
-            model.hrnet.double()
-            outs.append(precision.harness_outputs(model, N, s))
+    for s in SEEDS:
+        model = precision.harness_model(torch.float64, s, device="cpu")
+        assert model.hrnet.conv1.weight.dtype == torch.float64
+        outs.append(precision.harness_outputs(model, N, s))
     return outs
 
 
