@@ -27,6 +27,12 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    (their variants built into a library of their own); the SASS of the
    stencil library is searched for weight copies inside each variant's
    row loop; then ``probe_wide_tile()``, whose result is printed.
+3b. Kernel phase at the W32 pedestrian widths (``kernel_ped``): both
+   kernels at (C, H) in PED_SHAPES (32/48, 64/24, 128/12, 256/6), batch
+   32, each held against its plain version (one bf16 step) and timed
+   beside it, the cuDNN convs, the bound and the other tiles / plans of
+   PED_ALT_TILES / PED_STENCIL_SWEEP (each also checked), then checked at
+   batches 1, 3 and 5.
 4. Slice phase: ``EgoNet(demo_config(), device="cuda")`` — full W48, bf16,
    seeded random weights, the precision harness's LS stats
    (``precision._plausible_ls_stats``: cuboids near a placed one) — runs 4
@@ -55,6 +61,13 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    well-conditioned outputs: the head's logits and the heatmaps' RMS):
    fp32 with TF32 off, bf16 through the tiled kernel, bf16 through the
    stencil (bars below and in the phase's line).
+7b. Native phase: PoseNetTPU at its defaults (the root bench's native
+   family, ``config.native_demo_config()``), full width, bf16, on the
+   slice's 24 crops: no fused-block launch, median |d ry| against the
+   same model in fp32 under 0.5 deg, crops/s, device ms per span from one
+   trace, and the fp32 / bf16 harness against the JAX package's outputs
+   in ``tests/data/torch_native_fixture.npz`` (kpts 0.1 px, angles 2e-3
+   rad in fp32; median |d ry| 0.5 deg in bf16).
 8. CLI phase, stencil on (EGONET_PALLAS_STENCIL=1): writes a small KITTI
    root (4 frames of 375x1242 as PNGs from the port's writer,
    ``data/png.encode``, whose rows cycle through all five PNG filters;
@@ -65,14 +78,28 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    other than alpha and rot_y equal the input line's bytes, with finite
    angles.  Then the evaluator phase: the port's Python evaluator and the
    C++ binary score that submission, and their R40 lines must be equal.
+8b. On the same directory, the other families (``train_native``,
+   ``train_ped``, ``options`` lines): IGRTrainer steps of the shipped
+   native config and of the W32 pedestrian config (192x192 crops, stem to
+   stage2 frozen) on one fixed batch in fp32 and bf16 (ms, peak GB, a
+   loss that falls); the W32 model's bf16 eval forward in the facade
+   through the tiled kernel, the stencil and unfused (104 launches per
+   forward of the chosen kernel, |d ry| between the three); the W48 slice
+   with ``act_quant: int8`` and with ``fuse_merge: true`` against the
+   plain W48 (|d ry|, crops/s); the W48 'heatmap' (``pixel_shuffle``) and
+   'angleregression' head forwards; AngleTrainer steps at full W48 width
+   in bf16 (a loss that falls); one PoseResNet-50 forward.
 9. Bench phase (``tools/bench.py``): the device program at batch 32, 128
    and 384 (median of 5 windows, with min and max), FLOPs per crop, MFU,
-   the e2e loop, H2D rate.  Drift phase (``tools/precision_drift.py``):
+   for the W48 and the native family (``tpu_native_*``,
+   ``headline_family``), the e2e loop, H2D rate.  Drift phase (``tools/precision_drift.py``):
    bf16 against fp32 through the default kernel.
 10. Prints one JSON line per kernel shape and phase, both kernels' earlier
    times per forward (past figures from PERF.md, labelled so), the
    {"kernels": [...]} line (every number in it measured or, for
-   ``bound_ms``, reckoned in this run), the card line, and last
+   ``bound_ms``, reckoned in this run; per W48 forward, with every shape's
+   row under ``shapes`` and the W32 forward's sums under
+   ``w32_forward``), the run's seconds, the card line, and last
    {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -134,6 +161,37 @@ STENCIL_SWEEP = {
           (8, 4, 1, 8, 1, 1, 3, 96), (8, 3, 1, 8, 2, 2, 1, 96))}
 # fused blocks per HRNet-W48 forward at each width (104 in all)
 PER_FORWARD = {48: 32, 96: 32, 192: 28, 384: 12}
+# the W32 pedestrian model's branch widths and maps (192x192 crops), its
+# fused blocks per forward at each width (104 in all), the odd batches
+# checked there, and the other tiles / stencil plans checked and timed
+# beside the chosen ones (fb.tile_for, st.tile_for)
+PED_SHAPES = ((32, 48), (64, 24), (128, 12), (256, 6))
+PED_PER_FORWARD = {32: 32, 64: 32, 128: 28, 256: 12}
+PED_ODD_BATCHES = (1, 3, 5)
+PED_ALT_TILES = {
+    32: ((8, 8, 1, 48), (8, 16, 1, 48), (16, 16, 1, 48), (12, 16, 1, 48),
+         (16, 24, 1, 48), (24, 24, 1, 48), (8, 48, 1, 48)),
+    64: ((8, 8, 1, 48), (8, 12, 1, 48), (12, 12, 1, 48), (12, 24, 1, 48),
+         (24, 24, 1, 48), (4, 8, 2, 48), (6, 12, 1, 48)),
+    128: ((8, 8, 1, 48), (12, 12, 1, 48), (6, 6, 1, 48), (6, 12, 1, 48),
+          (4, 12, 1, 48), (6, 6, 2, 48)),
+    256: ((6, 6, 1, 48), (8, 8, 1, 48), (3, 6, 1, 48), (6, 6, 2, 48),
+          (2, 6, 1, 48), (3, 3, 1, 48))}
+PED_STENCIL_SWEEP = {
+    32: ((8, 1, 1, 1, 1, 1, 1), (16, 4, 1, 1, 2, 2, 1),
+         (16, 2, 1, 1, 1, 1, 1), (8, 4, 1, 1, 1, 1, 1),
+         (24, 2, 1, 1, 2, 2, 1), (48, 1, 1, 1, 2, 2, 1)),
+    64: ((8, 1, 1, 1, 1, 1, 1), (8, 3, 1, 1, 1, 1, 1),
+         (12, 2, 1, 1, 1, 1, 1), (24, 1, 1, 1, 2, 2, 1),
+         (8, 3, 1, 2, 1, 1, 1), (12, 2, 1, 2, 1, 1, 1)),
+    128: ((8, 1, 1, 4, 1, 1, 1), (12, 1, 1, 4, 1, 1, 1),
+          (6, 1, 1, 4, 1, 1, 1), (12, 2, 1, 4, 1, 1, 1),
+          (12, 1, 2, 4, 1, 1, 1), (12, 1, 1, 8, 1, 1, 1)),
+    256: ((8, 1, 1, 8, 1, 1, 1), (6, 1, 1, 8, 1, 1, 1),
+          (6, 2, 1, 8, 1, 1, 1), (6, 1, 2, 8, 1, 1, 1),
+          (6, 3, 1, 8, 1, 1, 1), (6, 2, 2, 8, 1, 1, 1))}
+# IGR steps of the native and pedestrian phases after the warm one
+N_FAMILY_STEPS = 4
 BATCH = 32
 # the fixture phase's fp32 bars: the random-weight W48 saturates most of
 # the head's sigmoids and the rest come from logits that cancel large
@@ -1195,6 +1253,397 @@ def train_igrs_phase(torch, np, here, root, pred_dir, ckpt_dir, out, card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the W32 pedestrian widths: both kernels at the shapes they meet there
+# ---------------------------------------------------------------------------
+
+def ped_sweeps(fb, st):
+    """({C: [(tile, plan)]} of the tiled kernel's PED_ALT_TILES that fit,
+    {C: [plan]} of PED_STENCIL_SWEEP's other than the chosen one)."""
+    tiled = {c: [(t, fb.plan_for(c, t)) for t in PED_ALT_TILES[c]
+                 if fb.tile_fits(c, t)
+                 and fb.plan_for(c, t) != fb.plan_for(c)]
+             for c, _ in PED_SHAPES}
+    stencil = {c: [st.plan_for(c, t) for t in PED_STENCIL_SWEEP[c]
+                   if st.tile_fits(c, t) and st.plan_for(c, t)
+                   != st.plan_for(c)] for c, _ in PED_SHAPES}
+    return tiled, stencil
+
+
+def kernel_ped_phase(torch, fb, st, tiled_sweep, tiled_lib, stencil_sweep,
+                     stencil_lib):
+    """Both kernels at the W32 pedestrian shapes (C, H) in PED_SHAPES,
+    batch 32: each held against its plain version (one bf16 step, atol
+    5e-2 / rtol 2e-2) and timed beside it, the cuDNN convs, the bound and
+    every other tile / plan of the sweeps (each also checked); then
+    checked at odd batches.  Returns {kernel: [row per shape]}."""
+    rows = {"fused_basic_block": [], "fused_basic_block_stencil": []}
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for c, h in PED_SHAPES:
+        x, (w1, b1, w2, b2) = _block_inputs(torch, fb, g, c, h, BATCH)
+        ref = fb.fused_basic_block_reference(x, w1, b1, w2, b2)
+        library = _library_block(torch, x, w1, b1, w2, b2)
+        lib_y = library().permute(0, 2, 3, 1)
+        torch.testing.assert_close(lib_y.float(), ref.float(), atol=0.25,
+                                   rtol=5e-2)
+        ops_ms, bytes_ms = _bound(c, h, h)
+        plain_ms = _time_ms(torch, lambda: fb.fused_basic_block_reference(
+            x, w1, b1, w2, b2), iters=5)
+        library_ms = _time_ms(torch, library)
+        for name, mod, wrapper, alts in (
+                ("fused_basic_block", fb, fb.fused_basic_block,
+                 [(_tile_name(t), fb._launcher(p, tiled_lib))
+                  for t, p in tiled_sweep[c]]),
+                ("fused_basic_block_stencil", st,
+                 st.fused_basic_block_stencil,
+                 [(_plan_name(p), st._launcher(p, stencil_lib))
+                  for p in stencil_sweep[c]])):
+            def kernel(launcher=None, mod=mod, wrapper=wrapper):
+                if launcher is None:
+                    return wrapper(x, w1, b1, w2, b2)
+                return mod._launch(x, w1, b1, w2, b2, *launcher)
+            for launcher in [None] + [a for _, a in alts]:
+                y = kernel(launcher)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(y.float(), ref.float(),
+                                           atol=5e-2, rtol=2e-2)
+            y = kernel()
+            torch.cuda.synchronize()
+            assert torch.isfinite(y.float()).all()
+            for b in PED_ODD_BATCHES:
+                xo = x[:b].contiguous()
+                yo = wrapper(xo, w1, b1, w2, b2)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(
+                    yo.float(), fb.fused_basic_block_reference(
+                        xo, w1, b1, w2, b2).float(), atol=5e-2, rtol=2e-2)
+            plan = mod.plan_for(c)
+            row = {"shape": {"C": c, "H": h, "W": h, "B": BATCH},
+                   "tile": list(mod.tile_for(c)),
+                   "max_abs_err": (y.float() - ref.float()).abs().max()
+                   .item(),
+                   "ms": _time_ms(torch, kernel), "plain_ms": plain_ms,
+                   "library_ms": library_ms,
+                   "alt_ms": {n: _time_ms(torch, lambda a=a: kernel(a),
+                                          iters=10) for n, a in alts},
+                   "odd_batches_checked": list(PED_ODD_BATCHES),
+                   "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                   "bound_ms": max(ops_ms, bytes_ms),
+                   "bound_by": "operations" if ops_ms >= bytes_ms
+                   else "bytes"}
+            if name == "fused_basic_block_stencil":
+                row["plan"] = _plan_summary(st, plan, st.library())
+            print(json.dumps({"kernel_ped": {name: row}}), flush=True)
+            rows[name].append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the other model families and options
+# ---------------------------------------------------------------------------
+
+def _slice_model(torch, cfgs, dtype=None):
+    from egonet_tpu_torch.models.egonet import EgoNet
+    from egonet_tpu_torch.precision import _plausible_ls_stats
+    model = EgoNet(cfgs, dtype=dtype, device="cuda")
+    model.load_state(ls_stats=_plausible_ls_stats())
+    return model
+
+
+def _trace_spans(torch, model, annot, n=1):
+    """Device ms per facade span (and the idle share) of ``n`` traced
+    batches after a warm one."""
+    from egonet_tpu_torch.utils import profiling
+    model.forward_annot_dict(annot)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.trace(log_dir, "cuda"):
+            for _ in range(n):
+                model.forward_annot_dict(annot)
+        s = profiling.summarize_trace(log_dir, iters=n)
+    return {"device_ms_by_span": s["by_span"],
+            "device_busy_ms": s["idle"]["busy_ms"],
+            "idle_share": s["idle"]["share"],
+            "top_kernels": [[k[:80], ms, c] for k, ms, c in
+                            s["by_kernel"][:5]]}
+
+
+def native_phase(torch, np, fb, st, here, annot):
+    """PoseNetTPU at its defaults (the root bench's native family: the demo
+    config with ``heatmapModel.name: tpu_native`` and ``extra: {}``), full
+    width, bf16, on the slice's 24 crops (bucket 32): no fused-block
+    launch, bf16 against the same model in fp32 (median |d ry| < 0.5 deg),
+    crops/s, device ms per span from one trace; then the fp32 and bf16
+    harness against tests/data/torch_native_fixture.npz."""
+    from egonet_tpu_torch import precision
+    from egonet_tpu_torch.config import native_demo_config
+    t0 = time.perf_counter()
+    model = _slice_model(torch, native_demo_config())
+    assert model.dtype == torch.bfloat16
+    with tempfile.TemporaryDirectory() as out_dir:
+        records, launches, first_s = _drive(torch, model, annot, fb, st,
+                                            out_dir)
+    assert launches == {"tiled": 0, "stencil": 0}, launches
+    ry = _ry(np, records)
+    assert np.isfinite(ry).all()
+    model32 = _slice_model(torch, native_demo_config(), torch.float32)
+    ry32 = _ry(np, model32.forward_annot_dict(annot))
+    del model32
+    d_ry = _d_deg(np, ry, ry32)
+    steady_s = _steady_s(torch, model, annot)
+    row = {"instances": N_FRAMES * N_BOXES, "bucket": 32,
+           "first_batch_s": first_s, "batch_s": steady_s,
+           "crops_per_s": N_FRAMES * N_BOXES / steady_s,
+           "median_d_ry_bf16_vs_fp32_deg": float(np.median(d_ry)),
+           "max_d_ry_bf16_vs_fp32_deg": float(d_ry.max()),
+           "profile": _trace_spans(torch, model, annot)}
+    del model
+    torch.cuda.empty_cache()
+    with np.load(os.path.join(here, "tests", "data",
+                              "torch_native_fixture.npz")) as f:
+        fix = {k: f[k] for k in f.files}
+    keys = ("kpts", "lifter", "euler", "alpha", "logits", "maps_rms")
+    seeds, n = [int(v) for v in fix["seeds"]], int(fix["n_instances"])
+    for name, dtype in (("fixture_fp32", torch.float32),
+                        ("fixture_bf16", torch.bfloat16)):
+        outs = [precision.harness_outputs(precision.harness_model(
+            dtype, s, "cuda", native_demo_config()), n, s) for s in seeds]
+        stacked = {k: np.stack([o[k] for o in outs]) for k in keys}
+        for k, v in stacked.items():
+            assert np.isfinite(v).all(), (name, k)
+        row[name] = precision.fixture_gaps(
+            stacked, {k: fix[k].astype(np.float64) for k in keys})
+    row["fixture_bars"] = {
+        "fp32": {"max_d_kpts_px": FIXTURE_FP32_KPTS_PX,
+                 "max_d_ry_rad": FIXTURE_FP32_RY_RAD,
+                 "max_rel_d_logits": FIXTURE_BF16_REL,
+                 "max_rel_d_maps_rms": FIXTURE_BF16_REL},
+        "bf16": {"median_d_ry_deg": 0.5}}
+    row["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"native": row}), flush=True)
+    assert np.median(d_ry) < 0.5, row
+    g = row["fixture_fp32"]
+    assert g["max_d_kpts_px"] <= FIXTURE_FP32_KPTS_PX, g
+    assert np.radians(g["max_d_ry_deg"]) <= FIXTURE_FP32_RY_RAD, g
+    assert np.radians(g["max_d_alpha_deg"]) <= FIXTURE_FP32_RY_RAD, g
+    assert g["max_rel_d_logits"] <= FIXTURE_BF16_REL, g
+    assert row["fixture_bf16"]["median_d_ry_deg"] < 0.5, row
+    torch.cuda.empty_cache()
+    return row
+
+
+def _train_row(torch, np, cfgs, card, **extra):
+    """The fixed-batch steps in fp32 (TF32 off) and bf16."""
+    row = {"card": card, **extra}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        row[name] = _fixed_batch_steps(torch, np, cfgs, dtype,
+                                       n_steps=N_FAMILY_STEPS)
+    return row
+
+
+def train_native_phase(torch, np, root, card):
+    """IGRTrainer steps of the shipped native config (KITTI_tpu_native.yml,
+    full width) on one fixed batch of the train split."""
+    from egonet_tpu_torch.config import tpu_native_config
+    t0 = time.perf_counter()
+    cfgs = tpu_native_config()
+    cfgs["dataset"]["root"] = root
+    row = _train_row(torch, np, cfgs, card)
+    row["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"train_native": row}), flush=True)
+    return row
+
+
+def _ped_demo_config():
+    """The demo pipeline with the shipped W32 pedestrian keypoint model
+    (KITTI_train_IGRs_Ped.yml's heatmapModel: 192x192 crops, 48x48
+    heatmaps, widths 32/64/128/256)."""
+    from egonet_tpu_torch.config import demo_config, train_igrs_ped_config
+    cfgs = demo_config()
+    cfgs["heatmapModel"] = train_igrs_ped_config()["heatmapModel"]
+    cfgs["heatmapModel"]["pretrained"] = ""
+    return cfgs
+
+
+def train_ped_phase(torch, np, fb, st, root, annot, card):
+    """The W32 pedestrian config: IGRTrainer steps on one fixed batch
+    (192x192 crops, stem to stage2 frozen; the synthetic split holds cars,
+    so ``detect_classes`` is Car), then its bf16 eval forward in the
+    facade on the slice's frames through the tiled kernel, the stencil and
+    unfused: 104 launches per forward of the chosen kernel, |d ry|
+    between the three."""
+    from egonet_tpu_torch.config import train_igrs_ped_config
+    t0 = time.perf_counter()
+    cfgs = train_igrs_ped_config()
+    cfgs["dataset"]["root"] = root
+    cfgs["dataset"]["detect_classes"] = ["Car"]
+    cfgs["heatmapModel"]["pretrained"] = ""
+    row = _train_row(torch, np, cfgs, card, classes=["Car"],
+                     frozen=cfgs["heatmapModel"]["extra"]["freeze_layers"])
+    model = _slice_model(torch, _ped_demo_config())
+    ry, launches = {}, {}
+    for name, stencil in (("tiled", "0"), ("stencil", "1")):
+        model.hrnet.prepare_inference(stencil=stencil)
+        with tempfile.TemporaryDirectory() as out_dir:
+            records, launches[name], _ = _drive(torch, model, annot, fb, st,
+                                                out_dir)
+        ry[name] = _ry(np, records)
+        row[f"{name}_crops_per_s"] = N_FRAMES * N_BOXES / _steady_s(
+            torch, model, annot, iters=5)
+    model.hrnet.prepare_inference(stencil="0")
+    model.hrnet.fuse_blocks = False
+    fb.fused_basic_block.launches = 0
+    ry["unfused"] = _ry(np, model.forward_annot_dict(annot))
+    assert fb.fused_basic_block.launches == 0
+    row["unfused_crops_per_s"] = N_FRAMES * N_BOXES / _steady_s(
+        torch, model, annot, iters=5)
+    del model
+    torch.cuda.empty_cache()
+    row["eval_launches"] = launches
+    for a, b in (("tiled", "unfused"), ("stencil", "unfused"),
+                 ("stencil", "tiled")):
+        d = _d_deg(np, ry[a], ry[b])
+        row[f"d_ry_{a}_vs_{b}_deg"] = {"median": float(np.median(d)),
+                                       "max": float(d.max())}
+    row["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"train_ped": row}), flush=True)
+    assert launches == {"tiled": {"tiled": 104, "stencil": 0},
+                        "stencil": {"tiled": 0, "stencil": 104}}, launches
+    for k in ("d_ry_tiled_vs_unfused_deg", "d_ry_stencil_vs_unfused_deg",
+              "d_ry_stencil_vs_tiled_deg"):
+        assert row[k]["median"] < 0.5, row
+    return row
+
+
+def _angle_steps(torch, np, root, n_steps=3):
+    """One warm and ``n_steps`` AngleTrainer steps ('baselinealpha') of the
+    W48 'angleregression' head at full width, bf16, on one fixed batch of
+    the train split."""
+    from egonet_tpu_torch.config import train_igrs_config
+    from egonet_tpu_torch.data import kitti
+    from egonet_tpu_torch.train.angle import AngleBatchLoader, AngleTrainer
+    cfgs = train_igrs_config()
+    cfgs["dataset"]["root"] = root
+    cfgs["exp_type"] = "baselinealpha"
+    cfgs["heatmapModel"].update(head_type="angleregression", pretrained="")
+    records = kitti.KITTIDataset(cfgs, "train").records
+    batch = next(AngleBatchLoader(records, cfgs, train=True, seed=0,
+                                  angle_index=0).epoch())
+    trainer = AngleTrainer(cfgs, dtype=torch.bfloat16, device="cuda")
+    state = trainer.init_state(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for i in range(n_steps + 1):
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, batch)
+        losses.append(float(loss))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    err = trainer.evaluate(state, kitti.KITTIDataset(cfgs, "valid").records)
+    row = {"real_crops": batch["meta"]["count"],
+           "padded_crops": len(batch["mask"]), "loss": losses,
+           "ms_incl_loss_read": ms,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "valid_angle_error_deg": err}
+    del trainer, state
+    torch.cuda.empty_cache()
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], row
+    return row
+
+
+def options_phase(torch, np, fb, st, annot, ry_w48, root, card):
+    """The W48 slice with ``act_quant: int8`` and with ``fuse_merge: true``
+    against the plain W48 (|d ry|, crops/s); the 'heatmap' head (with
+    ``pixel_shuffle``) and the 'angleregression' head forwards at W48,
+    bf16; AngleTrainer steps at full W48 width; one PoseResNet-50 forward
+    (shape and finiteness)."""
+    from egonet_tpu_torch.config import demo_config
+    from egonet_tpu_torch.models.factory import build_heatmap_model
+    from egonet_tpu_torch.models.init import numpy_init
+    t0 = time.perf_counter()
+    row = {"card": card}
+    for name, key, value in (("act_quant_int8", "act_quant", "int8"),
+                             ("fuse_merge", "fuse_merge", True)):
+        cfgs = demo_config()
+        cfgs["heatmapModel"][key] = value
+        model = _slice_model(torch, cfgs)
+        with tempfile.TemporaryDirectory() as out_dir:
+            records, launches, _ = _drive(torch, model, annot, fb, st,
+                                          out_dir)
+        d = _d_deg(np, _ry(np, records), ry_w48)
+        row[name] = {"launches": launches,
+                     "median_d_ry_vs_w48_deg": float(np.median(d)),
+                     "max_d_ry_vs_w48_deg": float(d.max()),
+                     "crops_per_s": N_FRAMES * N_BOXES / _steady_s(
+                         torch, model, annot, iters=5)}
+        del model
+        torch.cuda.empty_cache()
+        assert launches == {"tiled": 104, "stencil": 0}, (name, launches)
+    x = torch.randn(N_FRAMES * N_BOXES, 3, 256, 256, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(4))
+    heads = (("heatmap_pixel_shuffle", {"head_type": "heatmap",
+                                        "pixel_shuffle": True},
+              (N_FRAMES * N_BOXES, 33, 64, 64)),
+             ("angleregression", {"head_type": "angleregression"},
+              (N_FRAMES * N_BOXES, 2)))
+    for name, update, shape in heads:
+        cfgs = demo_config()
+        cfgs["heatmapModel"].update(update)
+        net = numpy_init(build_heatmap_model(cfgs, torch.bfloat16), 0)
+        net = net.to("cuda", memory_format=torch.channels_last).eval()
+        fb.fused_basic_block.launches = 0
+        with torch.inference_mode():
+            out = net(x)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            net(x)
+            torch.cuda.synchronize()
+        row[name] = {"shape": list(out.shape),
+                     "forward_ms": 1e3 * (time.perf_counter() - t1),
+                     "launches_per_forward": fb.fused_basic_block.launches
+                     // 2}
+        assert tuple(out.shape) == shape and torch.isfinite(out).all(), \
+            (name, out.shape)
+        assert row[name]["launches_per_forward"] == 104, row[name]
+        del net
+    row["angle_trainer_w48_bf16"] = _angle_steps(torch, np, root)
+    cfgs = demo_config()
+    cfgs["heatmapModel"].update(name="resnet", num_layers=50, extra={})
+    net = numpy_init(build_heatmap_model(cfgs, torch.bfloat16), 0)
+    net = net.to("cuda", memory_format=torch.channels_last).eval()
+    with torch.inference_mode():
+        out = net(x)
+    row["pose_resnet50"] = {"shape": list(out.shape),
+                            "finite": bool(torch.isfinite(out).all())}
+    del net
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"options": row}), flush=True)
+    assert tuple(out.shape) == (N_FRAMES * N_BOXES, 33, 64, 64)
+    assert row["pose_resnet50"]["finite"]
+    return row
+
+
+def _ped_entry(rows, launches):
+    """The W32 forward's share of a kernel's entry: per-shape rows summed
+    over one W32 pedestrian forward at 32 crops."""
+    def total(key):
+        return sum(PED_PER_FORWARD[r["shape"]["C"]] * r[key] for r in rows)
+    ops_ms, bytes_ms = total("ops_ms"), total("bytes_ms")
+    return {"launches": launches, "ms": total("ms"),
+            "plain_ms": total("plain_ms"), "library_ms": total("library_ms"),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "per": "one HRNet-W32 pedestrian forward at 32 crops "
+                   "(104 launches)"}
+
+
+def _shapes(rows):
+    return [{**r["shape"], **{k: r[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}}
+        for r in rows]
+
+
 def main() -> int:
     import torch
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1214,6 +1663,7 @@ def main() -> int:
     from egonet_tpu_torch.ops import fused_block_stencil as st
     from egonet_tpu_torch.tools.bench import card_line
 
+    t_run = time.perf_counter()
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}; CUDA {torch.version.cuda}",
           flush=True)
@@ -1222,8 +1672,14 @@ def main() -> int:
     sweep_lib = fb.library([p for plans in sweep.values() for _, p in plans])
     ssweep = stencil_sweep(st)
     ssweep_lib = st.library([p for plans in ssweep.values() for p in plans])
+    ped_tiled, ped_stencil = ped_sweeps(fb, st)
+    ped_tiled_lib = fb.library([p for plans in ped_tiled.values()
+                                for _, p in plans])
+    ped_stencil_lib = st.library([p for plans in ped_stencil.values()
+                                  for p in plans])
     t0 = time.perf_counter()
-    _build.build([fb.library(), sweep_lib, st.library(), ssweep_lib])
+    _build.build([fb.library(), sweep_lib, st.library(), ssweep_lib,
+                  ped_tiled_lib, ped_stencil_lib])
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, info in _build.BUILD_INFO.items():
         print(f"[{name}] built in {info['seconds']:.1f} s; "
@@ -1232,6 +1688,8 @@ def main() -> int:
     print(json.dumps({"sass": sass_report(_build, fb, st)}), flush=True)
     rows = kernel_phase(torch, fb, sweep, sweep_lib)
     srows = stencil_kernel_phase(torch, fb, st, ssweep, ssweep_lib)
+    ped_rows = kernel_ped_phase(torch, fb, st, ped_tiled, ped_tiled_lib,
+                                ped_stencil, ped_stencil_lib)
     result, model, annot, ry, ry_u = slice_phase(torch, np, fb, st)
     print(json.dumps({"slice": result}), flush=True)
     sresult = stencil_slice_phase(torch, np, fb, st, model, annot, ry, ry_u)
@@ -1242,6 +1700,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     fixture_phase(torch, np, fb, st, here)
     torch.cuda.empty_cache()
+    native_phase(torch, np, fb, st, here, annot)
     with tempfile.TemporaryDirectory() as tmp:
         cli, root, pred_dir = cli_phase(np, fb, st, tmp)
         print(json.dumps({"cli": cli}), flush=True)
@@ -1252,6 +1711,9 @@ def main() -> int:
         ckpt_dir = train_lifter_phase(torch, np, root, out, card)
         train_igrs_phase(torch, np, here, root, pred_dir, ckpt_dir, out,
                          card)
+        train_native_phase(torch, np, root, card)
+        ped = train_ped_phase(torch, np, fb, st, root, annot, card)
+        options_phase(torch, np, fb, st, annot, ry, root, card)
         print(json.dumps({"training_phases_s": time.perf_counter() - t0,
                           "card": card}), flush=True)
     torch.cuda.empty_cache()
@@ -1261,17 +1723,24 @@ def main() -> int:
 
     assert sum(PER_FORWARD.values()) == result["launches_per_forward"]
     print(json.dumps({"earlier": EARLIER}), flush=True)
-    print(json.dumps({"kernels": [
-        _kernel_entry(rows, result["launches"], name="fused_basic_block",
-                      route="cuda",
-                      source="egonet_tpu_torch/csrc/fused_basic_block.cu",
-                      replaces="egonet_tpu/ops/pallas_block.py:189"),
-        _kernel_entry(srows, sresult["launches"],
-                      name="fused_basic_block_stencil", route="cuda",
-                      source="egonet_tpu_torch/csrc/"
-                             "fused_basic_block_stencil.cu",
-                      replaces="egonet_tpu/ops/pallas_block_stencil.py:160"),
-    ]}), flush=True)
+    entries = []
+    for w48_rows, launches, name, replaces in (
+            (rows, result["launches"], "fused_basic_block",
+             "egonet_tpu/ops/pallas_block.py:189"),
+            (srows, sresult["launches"], "fused_basic_block_stencil",
+             "egonet_tpu/ops/pallas_block_stencil.py:160")):
+        entry = _kernel_entry(w48_rows, launches, name=name, route="cuda",
+                              source=f"egonet_tpu_torch/csrc/{name}.cu",
+                              replaces=replaces)
+        entry["max_abs_err"] = max(r["max_abs_err"]
+                                   for r in w48_rows + ped_rows[name])
+        entry["shapes"] = _shapes(w48_rows + ped_rows[name])
+        path = "tiled" if name == "fused_basic_block" else "stencil"
+        entry["w32_forward"] = _ped_entry(
+            ped_rows[name], ped["eval_launches"][path][path])
+        entries.append(entry)
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"run_s": time.perf_counter() - t_run}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

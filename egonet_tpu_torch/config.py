@@ -2,11 +2,13 @@
 YAML loading and the entry points' command line.
 
 A GPU host may lack PyYAML, so :func:`demo_config`,
-:func:`train_lifting_config` and :func:`train_igrs_config` need no YAML at
-all and :func:`load_config` imports ``yaml`` only when called (by
+:func:`train_lifting_config`, :func:`train_igrs_config`,
+:func:`train_igrs_ped_config` and :func:`tpu_native_config` need no YAML
+at all and :func:`load_config` imports ``yaml`` only when called (by
 :func:`parse_args`, when ``--cfg`` is read).  The dicts below equal
 ``yaml.safe_load`` of ``egonet_tpu/configs/KITTI_inference_demo.yml``,
-``KITTI_train_lifting.yml`` and ``KITTI_train_IGRs.yml`` (asserted by the
+``KITTI_train_lifting.yml``, ``KITTI_train_IGRs.yml``,
+``KITTI_train_IGRs_Ped.yml`` and ``KITTI_tpu_native.yml`` (asserted by the
 tests).
 """
 
@@ -234,6 +236,66 @@ _TRAIN_IGRS = {
 }
 
 
+def _stage(n_modules, n_branches, widths):
+    return {"num_modules": n_modules, "num_branches": n_branches,
+            "block": "basic", "num_blocks": [4] * n_branches,
+            "num_channels": list(widths), "fuse_method": "sum"}
+
+
+# KITTI_train_IGRs_Ped.yml: the W32 pedestrian model (192x192 crops, 48x48
+# heatmaps, widths 32/64/128/256, stem to stage2 frozen)
+_TRAIN_IGRS_PED = copy.deepcopy(_TRAIN_IGRS)
+_TRAIN_IGRS_PED.update({
+    "name": "kitti_kpt_loc_pedestrian",
+    "dirs": {"output": "./outputs/training_record_ped",
+             "debug": "./outputs/training_record_ped/debug"}})
+_TRAIN_IGRS_PED["dataset"].update({"detect_classes": ["Pedestrian"],
+                                   "enlarge_factor": 1.05,
+                                   "pre-process": True})
+_TRAIN_IGRS_PED["heatmapModel"].update({
+    "jitter_params": {"shift": [0.1, 0.1], "scaling": [0.2, 0.2]},
+    "input_size": [192, 192],
+    "heatmap_size": [48, 48],
+    "loss_spec_list": ["mse", "l1", "None"],
+    "loss_weight_list": [1.0, 0.1, 0.0],
+    "cr_loss_threshold": 0.1,
+    "use_different_joints_weight": False,
+    "pretrained": "./resources/start_point_w32.pth",
+    "sigma": 2,
+    "extra": {
+        "pretrained_layers": _DEMO["heatmapModel"]["extra"][
+            "pretrained_layers"],
+        "freeze_layers": ["conv1", "bn1", "conv2", "bn2", "layer1",
+                          "transition1", "stage2"],
+        "final_conv_kernel": 1,
+        "stage2": _stage(1, 2, (32, 64)),
+        "stage3": _stage(4, 3, (32, 64, 128)),
+        "stage4": _stage(3, 4, (32, 64, 128, 256))}})
+_TRAIN_IGRS_PED["training_settings"].update({
+    "total_epochs": 40, "begin_epoch": 1, "end_epoch": 10,
+    "snapshot_epochs": [20, 30, 40], "batch_size": 2, "num_threads": 0,
+    "report_every": 100, "eval_every": 1000, "eval_during": True})
+_TRAIN_IGRS_PED["testing_settings"].update({"num_threads": 0,
+                                           "save_debug": False})
+_TRAIN_IGRS_PED["optimizer"]["milestones"] = [10, 20, 30]
+
+# KITTI_tpu_native.yml: PoseNetTPU (stride-8 grid, depths 1/3/9, widths
+# 256/512/1024, expansion 2/3/4, head 128) with the W48 recipe
+_TPU_NATIVE = copy.deepcopy(_TRAIN_IGRS)
+_TPU_NATIVE.update({
+    "name": "kitti_kpt_loc_tpu_native",
+    "dirs": {"output": "./outputs/tpu_native_record",
+             "debug": "./outputs/tpu_native_record/debug"}})
+_TPU_NATIVE["heatmapModel"].update({
+    "name": "tpu_native", "pretrained": "",
+    "extra": {"grid_stride": 8, "depths": [1, 3, 9],
+              "widths": [256, 512, 1024], "expansion": [2, 3, 4],
+              "head_width": 128}})
+_TPU_NATIVE["training_settings"]["debug"] = {
+    "save": False, "save_images_kpts": True, "save_hms_gt": True,
+    "save_hms_pred": True}
+
+
 def demo_config() -> dict:
     """The shipped W48 inference configuration, as a fresh dict."""
     return copy.deepcopy(_DEMO)
@@ -248,6 +310,28 @@ def train_igrs_config() -> dict:
     """The shipped HRNet-W48 IGR training configuration, as a fresh
     dict."""
     return copy.deepcopy(_TRAIN_IGRS)
+
+
+def train_igrs_ped_config() -> dict:
+    """The shipped HRNet-W32 pedestrian IGR training configuration
+    (``KITTI_train_IGRs_Ped.yml``), as a fresh dict."""
+    return copy.deepcopy(_TRAIN_IGRS_PED)
+
+
+def tpu_native_config() -> dict:
+    """The shipped PoseNetTPU IGR training configuration
+    (``KITTI_tpu_native.yml``), as a fresh dict."""
+    return copy.deepcopy(_TPU_NATIVE)
+
+
+def native_demo_config() -> dict:
+    """The demo inference configuration with the PoseNetTPU backbone at
+    its defaults (``heatmapModel.name: tpu_native``, ``extra: {}``): the
+    native half of the root bench."""
+    cfg = demo_config()
+    cfg["heatmapModel"]["name"] = "tpu_native"
+    cfg["heatmapModel"]["extra"] = {}
+    return cfg
 
 
 def load_config(path: str) -> dict:

@@ -5,7 +5,10 @@ The port's modules keep the reference ``state_dict`` key names, so
 ``from_jax_variables`` is the mechanical re-keying of
 ``egonet_tpu/io/torch_convert.py:flax_to_torch`` (HWIO -> OIHW, IO -> OI,
 scale/bias/mean/var -> BN keys, plus ``num_batches_tracked``), and
-``HC.pth`` / ``L.pth`` load natively with ``strict=True``.
+``HC.pth`` / ``L.pth`` load natively with ``strict=True``.  The one 4-D
+axis swap also carries a depthwise kernel ((3, 3, 1, C) -> [C, 1, 3, 3])
+and a flax ``ConvTranspose`` kernel with ``transpose_kernel`` ((kh, kw,
+out, in) -> torch's [in, out, kh, kw]); BatchNorm1d keys are a BN's.
 """
 
 from __future__ import annotations

@@ -7,9 +7,11 @@ the 2x3 crop matrices and packs the source pixels (ROI-packed canvas or
 full canvases); the device runs
 
     separable affine warp + normalization            (ops/affine.py)
-    HRNet 'coordinates' head -> local coords [N, 33, 2] (models/hrnet.py;
-                                     104 branch blocks through the fused
-                                     Hopper kernel in bf16 eval)
+    keypoint model, 'coordinates' head -> local coords [N, 33, 2]
+                                     (models/factory.py: the HRNet, 104
+                                     branch blocks through the fused
+                                     Hopper kernel in bf16 eval, or
+                                     PoseNetTPU, cuDNN convs)
     inverse affine to screen coords                  (batched fp32 matmul)
     LS-normalize -> FC lifter -> un-normalize        (models/fc_lifter.py)
     template fit + rigid solve + euler + alpha       (geometry/rigid.py)
@@ -107,6 +109,10 @@ class EgoNet:
                              f"got {self.pack_mode!r}")
         self.hrnet = numpy_init(build_heatmap_model(cfgs, dtype=self.dtype),
                                 rng_seed).eval()
+        if getattr(self.hrnet, "head_type", None) != "coordinates":
+            raise ValueError("the facade reads keypoints from a "
+                             "'coordinates' head; heatmapModel "
+                             f"{hm.get('name', 'hrnet')!r} has none")
         self.lifter = numpy_init(build_fc_model(cfgs, dtype=self.dtype),
                                  rng_seed + 1).eval()
         fc = cfgs["FCModel"]
@@ -210,7 +216,7 @@ class EgoNet:
         with span("normalize"):
             crops = affine.normalize_crop_patches(
                 self.cfgs, patches, inv_mats, img_wh, (height, width))
-        with span("hrnet"):
+        with span("backbone"):
             _maps, coords = self.hrnet(crops.permute(0, 3, 1, 2))
         with span("inverse_affine"):
             local = coords * torch.tensor([width, height],

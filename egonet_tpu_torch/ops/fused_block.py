@@ -52,10 +52,14 @@ from egonet_tpu_torch.ops import _build
 
 _LIB_NAME = "fused_basic_block"
 # output tile (TH, TW, NB images per block, KS weight columns per K slab)
-# per channel width, measured per W48 shape (chip_smoke.py times the other
-# tiles of its ALT_TILES beside it)
+# per channel width, measured per shape: the W48 widths at 64/32/16/8 and
+# the W32 pedestrian widths at 48/24/12/6 (chip_smoke.py times the other
+# tiles of its ALT_TILES / PED_ALT_TILES beside it); other widths take
+# (8, 8, 1, 48) and raise where that does not fit
 _TILES = {48: (16, 32, 1, 144), 96: (16, 16, 1, 96), 192: (8, 8, 1, 96),
-          384: (4, 4, 1, 48)}
+          384: (4, 4, 1, 48),
+          32: (12, 16, 1, 48), 64: (6, 12, 1, 48), 128: (6, 6, 1, 48),
+          256: (2, 6, 1, 48)}
 _SMEM_LIMIT = 232448          # dynamic shared memory one block may use
 _WARPS = 8
 _MAX_C = 64 * _WARPS          # widest channel count 8 warps cover

@@ -53,11 +53,14 @@ from egonet_tpu_torch.ops.fused_block import (_SMEM_LIMIT, _align128, _cdiv,
 _LIB_NAME = "fused_basic_block_stencil"
 # (TW columns, RH rows per step, NB images, K blocks per cluster, WM1, WM2
 # warps along M of conv1 and of conv2, WN warps along N) per channel width,
-# measured per W48 shape (chip_smoke.py times the other plans of its
-# STENCIL_SWEEP beside it); an 8th entry KS asks for weights streamed in
-# slabs of KS channels
+# measured per shape: the W48 widths at 64/32/16/8 and the W32 pedestrian
+# widths at 48/24/12/6 (chip_smoke.py times the other plans of its
+# STENCIL_SWEEP / PED_STENCIL_SWEEP beside it); an 8th entry KS asks for
+# weights streamed in slabs of KS channels
 _TILES = {48: (16, 4, 1, 1, 2, 2, 1), 96: (16, 3, 1, 2, 4, 3, 1),
-          192: (16, 1, 1, 8, 2, 1, 1), 384: (8, 3, 1, 8, 1, 1, 3, 96)}
+          192: (16, 1, 1, 8, 2, 1, 1), 384: (8, 3, 1, 8, 1, 1, 3, 96),
+          32: (16, 4, 1, 1, 2, 2, 1), 64: (8, 3, 1, 2, 1, 1, 1),
+          128: (12, 1, 2, 4, 1, 1, 1), 256: (6, 1, 2, 8, 1, 1, 1, 64)}
 _MAX_C = 384          # the widest channel count the default library serves
 _MAX_WARPS = 8
 _MAX_CLUSTER = 8      # portable cluster size

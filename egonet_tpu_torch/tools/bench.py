@@ -1,5 +1,5 @@
-"""Benchmark of the port's W48 inference on one card (port of the W48 half
-of the root ``bench.py``).  Prints ONE JSON line:
+"""Benchmark of the port's inference on one card (port of the root
+``bench.py``: the W48 half and the native half).  Prints ONE JSON line:
 
   w48_crops_per_sec      the device program (``EgoNet._core``: warp ->
                          HRNet-W48 -> inverse affine -> lifter -> rigid
@@ -23,16 +23,29 @@ of the root ``bench.py``).  Prints ONE JSON line:
   h2d_kb_per_crop / h2d_mb_per_sec  frame bytes moved per crop in the e2e
                          loop, and a pinned host->device copy's rate.
 
+  tpu_native_crops_per_sec / _vs_w48 / _flops_per_crop / _mfu
+                         the native half of the root bench: the same
+                         device program with PoseNetTPU at its defaults
+                         (``heatmapModel.name: tpu_native``, ``extra:
+                         {}``, i.e. ``config.native_demo_config()``) at the
+                         largest batch, and ``tpu_native_by_batch`` at each.
+  headline_family / best_gated_crops_per_sec  as the root bench: the faster
+                         of the two families ("hrnet_w48_parity" or
+                         "tpu_native_stride8") and its rate.  The root
+                         bench calls it gated because its closed-loop gate
+                         covers both families; the gate's port leg is
+                         still queued (ROADMAP).
+
 Environment: BENCH_BATCH (384), BENCH_ITERS (20), BENCH_WARMUP (3),
-BENCH_DTYPE (bf16 | fp32), BENCH_E2E (1).  The e2e loop runs over 32
-frames, 2 epochs a window.
+BENCH_DTYPE (bf16 | fp32), BENCH_E2E (1), BENCH_NATIVE (1), and the root
+bench's W48 switches BENCH_ACT_QUANT (e.g. int8) and BENCH_FUSE_MERGE
+(1), which the native half inherits as the root bench's does.  The e2e
+loop runs over 32 frames, 2 epochs a window.
 
     python -m egonet_tpu_torch.tools.bench
 
 Runs on the card; ``main(cfgs=..., device="cpu")`` runs it on the CPU,
-where the device-only fields (``mfu``, ``h2d_mb_per_sec``) are null.  The
-TPU-native family of the root bench (``tpu_native_*``) is not ported yet
-(ROADMAP slice D).
+where the device-only fields (``mfu``, ``h2d_mb_per_sec``) are null.
 """
 
 from __future__ import annotations
@@ -46,7 +59,6 @@ import numpy as np
 import torch
 
 H100_BF16_PEAK_FLOPS = 989e12          # SXM, dense
-NOT_PORTED = "tpu_native family (ROADMAP slice D)"
 REPEATS = 5             # timed windows per figure: the median, min and max
 
 
@@ -262,25 +274,13 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def main(cfgs=None, device=None) -> dict:
-    """Run the bench and print its JSON line (also returned).  ``cfgs``
-    defaults to the shipped W48 config; ``device=None`` is the card."""
-    from egonet_tpu_torch.config import demo_config
-    from egonet_tpu_torch.models.egonet import EgoNet
-    env = os.environ.get
-    batches = sorted(int(b) for b in env("BENCH_BATCH", "384").split(","))
-    iters = int(env("BENCH_ITERS", "20"))
-    warmup = int(env("BENCH_WARMUP", "3"))
-    bf16 = env("BENCH_DTYPE", "bf16") == "bf16"
-    model = EgoNet(cfgs or demo_config(), pre_trained=False,
-                   dtype=torch.bfloat16 if bf16 else torch.float32,
-                   device=device)
-    on_card = model.device.type == "cuda"
-
-    by_batch = {}
+def _by_batch(model, batches, iters, warmup, bf16, on_card):
+    """{batch: its figures} and the FLOPs per crop of ``model``'s device
+    program."""
+    out = {}
     for b in batches:
         r = bench_core(model, b, iters, warmup, REPEATS)
-        by_batch[str(b)] = {
+        out[str(b)] = {
             "crops_per_sec": r["crops_per_sec"],
             "windows": {"n": REPEATS, "iters": iters, "min": r["min"],
                         "max": r["max"]},
@@ -288,6 +288,32 @@ def main(cfgs=None, device=None) -> dict:
             "mfu": (r["flops"] / r["step_s"] / H100_BF16_PEAK_FLOPS
                     if on_card and bf16 else None)}
         flops_per_crop = r["flops"] / b
+    return out, flops_per_crop
+
+
+def main(cfgs=None, device=None, native_cfgs=None) -> dict:
+    """Run the bench and print its JSON line (also returned).  ``cfgs``
+    defaults to the shipped W48 config, ``native_cfgs`` to it with the
+    native switch of the root bench; ``device=None`` is the card."""
+    import copy
+    from egonet_tpu_torch.config import demo_config
+    from egonet_tpu_torch.models.egonet import EgoNet
+    env = os.environ.get
+    batches = sorted(int(b) for b in env("BENCH_BATCH", "384").split(","))
+    iters = int(env("BENCH_ITERS", "20"))
+    warmup = int(env("BENCH_WARMUP", "3"))
+    bf16 = env("BENCH_DTYPE", "bf16") == "bf16"
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    cfgs = copy.deepcopy(cfgs or demo_config())
+    if env("BENCH_ACT_QUANT"):
+        cfgs["heatmapModel"]["act_quant"] = env("BENCH_ACT_QUANT")
+    if env("BENCH_FUSE_MERGE"):
+        cfgs["heatmapModel"]["fuse_merge"] = env("BENCH_FUSE_MERGE") == "1"
+    model = EgoNet(cfgs, pre_trained=False, dtype=dtype, device=device)
+    on_card = model.device.type == "cuda"
+
+    by_batch, flops_per_crop = _by_batch(model, batches, iters, warmup, bf16,
+                                         on_card)
     head = by_batch[str(batches[-1])]
     line = {"metric": "w48_crops_per_sec", "value": head["crops_per_sec"],
             "unit": "crops/s", "batch": batches[-1],
@@ -296,12 +322,36 @@ def main(cfgs=None, device=None) -> dict:
             "windows": head["windows"],
             "sync_crops_per_sec": head["sync_crops_per_sec"],
             "flops_per_crop": flops_per_crop / 1e9,       # GFLOP
-            "mfu": head["mfu"], "by_batch": by_batch}
+            "mfu": head["mfu"], "by_batch": by_batch,
+            "act_quant": cfgs["heatmapModel"].get("act_quant", "none"),
+            "fuse_merge": bool(cfgs["heatmapModel"].get("fuse_merge"))}
+    best, family = head["crops_per_sec"], "hrnet_w48_parity"
+    if env("BENCH_NATIVE", "1") == "1":
+        if native_cfgs is None:
+            native_cfgs = copy.deepcopy(cfgs)
+            native_cfgs["heatmapModel"]["name"] = "tpu_native"
+            native_cfgs["heatmapModel"]["extra"] = {}
+        native = EgoNet(native_cfgs, pre_trained=False, dtype=dtype,
+                        device=device)
+        n_by, n_flops = _by_batch(native, batches, iters, warmup, bf16,
+                                  on_card)
+        del native
+        n_head = n_by[str(batches[-1])]
+        line.update({
+            "tpu_native_crops_per_sec": n_head["crops_per_sec"],
+            "tpu_native_vs_w48": n_head["crops_per_sec"]
+            / head["crops_per_sec"],
+            "tpu_native_flops_per_crop": n_flops / 1e9,   # GFLOP
+            "tpu_native_mfu": n_head["mfu"],
+            "tpu_native_by_batch": n_by})
+        if n_head["crops_per_sec"] > best:
+            best, family = n_head["crops_per_sec"], "tpu_native_stride8"
+    line.update({"headline_family": family,
+                 "best_gated_crops_per_sec": best})
 
     if env("BENCH_E2E", "1") == "1":
         line.update(e2e_fields(model, head["crops_per_sec"]))
-    line.update({"not_ported": NOT_PORTED,
-                 "device": (torch.cuda.get_device_name(model.device)
+    line.update({"device": (torch.cuda.get_device_name(model.device)
                             if on_card else "cpu"),
                  "card": card_line() if on_card else None})
     print(json.dumps(line), flush=True)

@@ -1,9 +1,10 @@
-"""Stage-2 training: the HRNet keypoint (IGR) model (port of
-``egonet_tpu/train/igrs.py``).
+"""Stage-2 training: the keypoint (IGR) model, any heatmap family with a
+'coordinates' head (the W48 / W32 HRNet, PoseNetTPU), with the layers of
+``extra.freeze_layers`` frozen (port of ``egonet_tpu/train/igrs.py``).
 
 One step: the host batch goes to the device (``h2d``), every instance is
 cropped there by the separable warp (``warp``) and normalized
-(``normalize``), the HRNet runs in train mode (``forward``), the Gaussian
+(``normalize``), the model runs in train mode (``forward``), the Gaussian
 targets are rendered (``targets``), the composite loss is taken
 (``loss``), then ``backward`` and the ``optimizer`` step.  Each stage is a
 named range (``utils/profiling.TRAIN_SPANS``), so a trace charges the
@@ -55,7 +56,13 @@ class TrainState:
     step: int = 0
 
 
-class IGRTrainer:
+class CropTrainer:
+    """What the IGR and angle trainers share: a heatmap model trained on
+    crops that the device warps out of the batch's frames; its initial
+    state, the host batch's copy to the device and the crops."""
+
+    float_keys = _FLOAT_KEYS
+
     def __init__(self, cfgs: dict, dtype=torch.float32,
                  steps_per_epoch: int = 1, logger=None, device=None):
         self.cfgs = cfgs
@@ -64,16 +71,12 @@ class IGRTrainer:
         self.device = resolve_device(device)
         self.steps_per_epoch = int(steps_per_epoch)
         full_precision_fp32()
-        self.loss_cfg = losses.CompositeLossConfig(cfgs)
-        hm = cfgs["heatmapModel"]
-        self.input_size = tuple(hm["input_size"])           # (w, h)
-        self.heatmap_size = tuple(hm.get("heatmap_size", (64, 64)))
-        self.sigma = float(hm.get("sigma", 1.0))
-        self.use_tw = bool(cfgs.get("training_settings", {})
-                           .get("use_target_weight", False))
+        self.input_size = tuple(cfgs["heatmapModel"]["input_size"])  # (w, h)
         self.model = build_heatmap_model(cfgs, dtype=dtype)
 
-    # ------------------------------------------------------------------
+    def _freeze_layers(self):
+        return (self.cfgs["heatmapModel"].get("extra") or {}).get(
+            "freeze_layers", [])
 
     def init_state(self, rng_seed: int = 0, variables=None) -> TrainState:
         """The model with the JAX package's initial values for
@@ -87,13 +90,10 @@ class IGRTrainer:
             model.load_state_dict(variables, strict=True)
         model.to(self.device, memory_format=torch.channels_last)
         model.train()
-        freeze = self.cfgs["heatmapModel"]["extra"].get("freeze_layers", [])
-        params = optim.apply_freezing(model, freeze)
+        params = optim.apply_freezing(model, self._freeze_layers())
         opt, self.schedule = optim.prepare_optim(self.cfgs, params,
                                                  self.steps_per_epoch)
         return TrainState(model, opt, 0)
-
-    # ------------------------------------------------------------------
 
     def _device_batch(self, batch):
         """Host batch -> device tensors (pinned, asynchronous copies on the
@@ -106,7 +106,7 @@ class IGRTrainer:
             out["meta"] = batch["meta"]
         cuda = self.device.type == "cuda"
         with span("h2d"):
-            for k in ("images",) + _FLOAT_KEYS:
+            for k in ("images",) + self.float_keys:
                 if k not in batch:
                     continue
                 t = torch.from_numpy(np.ascontiguousarray(batch[k]))
@@ -126,6 +126,20 @@ class IGRTrainer:
             return affine.normalize_crop_patches(
                 self.cfgs, patches, batch["inv_mats"], batch.get("img_wh"),
                 (h, w))
+
+
+class IGRTrainer(CropTrainer):
+    def __init__(self, cfgs: dict, dtype=torch.float32,
+                 steps_per_epoch: int = 1, logger=None, device=None):
+        super().__init__(cfgs, dtype, steps_per_epoch, logger, device)
+        self.loss_cfg = losses.CompositeLossConfig(cfgs)
+        hm = cfgs["heatmapModel"]
+        self.heatmap_size = tuple(hm.get("heatmap_size", (64, 64)))
+        self.sigma = float(hm.get("sigma", 1.0))
+        self.use_tw = bool(cfgs.get("training_settings", {})
+                           .get("use_target_weight", False))
+
+    # ------------------------------------------------------------------
 
     def loss_fn(self, model, batch, apply_cr: bool):
         """(total, {component: value}) of one device batch."""

@@ -29,16 +29,17 @@ import torch
 #   h2d             the pinned host->device copies of frames and meta
 #   warp            the separable crop warp
 #   normalize       crop normalization (mean / std)
-#   hrnet           HRNet-W48 with its 'coordinates' head (the fused
-#                   BasicBlock kernels run here)
+#   backbone        the keypoint model (HRNet, PoseNetTPU) with its
+#                   'coordinates' head (the HRNet's fused BasicBlock
+#                   kernels run here)
 #   inverse_affine  local -> screen coordinates
 #   lifter          LS-normalize -> FC lifter -> un-normalize
 #   rigid           template fit and rigid solve (six_dof_from_cuboids)
 #   alpha           the observation angle
 #   d2h             the device->host copy of the flat output
 #   finalize        waiting for that copy and regrouping per image
-SPANS = ("host_prep", "h2d", "warp", "normalize", "hrnet", "inverse_affine",
-         "lifter", "rigid", "alpha", "d2h", "finalize")
+SPANS = ("host_prep", "h2d", "warp", "normalize", "backbone",
+         "inverse_affine", "lifter", "rigid", "alpha", "d2h", "finalize")
 
 # The IGR train step's stages, in order:
 #   h2d        the pinned host->device copies of the batch

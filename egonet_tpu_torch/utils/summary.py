@@ -2,14 +2,15 @@
 ``egonet_tpu/utils/summary.py``).
 
 FLOPs are counted by ``torch.utils.flop_counter.FlopCounterMode`` (2 per
-multiply-add, convolutions and matrix products) with every fused
-BasicBlock on its plain version: the fused kernels are ctypes launches the
-counter cannot see, and the plain version does the same work.  The
+multiply-add of convolutions, transposed convolutions and matrix
+products) with every fused BasicBlock on its plain version: the fused
+kernels are ctypes launches the counter cannot see, and the plain version
+does the same work.  The
 per-layer table is the reference's ``get_model_summary`` table
-(``libs/common/utils.py:35-147``): the HRNet runs its layers through
-``F.conv2d`` on their weights, not through the layers' ``forward``, so a
-row is kept for each convolution and linear call and named after the
-module that owns the weight.
+(``libs/common/utils.py:35-147``): the heatmap models run their layers
+through ``F.conv2d`` / ``F.conv_transpose2d`` / ``F.linear`` on their
+weights, not through the layers' ``forward``, so a row is kept for each
+such call and named after the module that owns the weight.
 """
 
 from __future__ import annotations
@@ -61,8 +62,9 @@ def model_summary(model: torch.nn.Module, sample_input) -> dict:
 
 
 class _LayerRecorder(TorchFunctionMode):
-    """One row per ``conv2d`` / ``linear`` call: the module owning the
-    weight, input and output shapes, and FLOPs (2 per multiply-add)."""
+    """One row per ``conv2d`` / ``conv_transpose2d`` / ``linear`` call: the
+    module owning the weight, input and output shapes, and FLOPs (2 per
+    multiply-add)."""
 
     def __init__(self, owners):
         super().__init__()
@@ -72,9 +74,13 @@ class _LayerRecorder(TorchFunctionMode):
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if func in (F.conv2d, F.linear):
+        if func in (F.conv2d, F.conv_transpose2d, F.linear):
             x, w = args[0], args[1] if len(args) > 1 else kwargs["weight"]
-            macs = out.numel() * w[0].numel()       # Cin/groups x kh x kw
+            # each output of a conv or dense layer sums w[0].numel() products
+            # (C_in/groups x kh x kw); each input of a transposed conv feeds
+            # w[0].numel() of them (C_out/groups x kh x kw)
+            macs = (x if func is F.conv_transpose2d else out).numel() \
+                * w[0].numel()
             self.rows.append({"name": self.owners.get(id(w), "?"),
                               "op": func.__name__,
                               "in": tuple(x.shape), "out": tuple(out.shape),
@@ -91,11 +97,13 @@ def layer_rows(model: torch.nn.Module, sample_input) -> list:
         if isinstance(w, torch.Tensor):
             owners[id(w)] = name
             params[name] = sum(p.numel() for p in m.parameters(recurse=False))
-    # the HRNet's bf16 inference copies of its conv weights
+    # the bf16 inference copies of the conv weights (a tuple key: the
+    # convs fuse_merge runs as one)
     names = {id(m): name for name, m in model.named_modules()}
     cache = getattr(model, "_inference_cache", None) or {}
     for m, w in cache.get("cast", {}).items():
-        owners[id(w)] = names[id(m)]
+        owners[id(w)] = "+".join(names[id(c)] for c in (
+            m if isinstance(m, tuple) else (m,)))
     recorder = _LayerRecorder(owners)
     with plain_blocks(model), torch.inference_mode(), recorder:
         model(sample_input)

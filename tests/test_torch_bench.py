@@ -111,13 +111,18 @@ def cpu_line():
         import io
         buf = io.StringIO()
         with redirect_stdout(buf):
-            line = bench.main(cfgs=cfg, device="cpu")
+            line = bench.main(cfgs=cfg, device="cpu",
+                              native_cfgs=fixtures.shrink_tpu_native(
+                                  demo_config()))
     return line, buf.getvalue()
 
 
 KEYS = ("metric", "value", "unit", "batch", "w48_crops_per_sec", "windows",
         "sync_crops_per_sec", "flops_per_crop", "mfu", "by_batch",
-        "not_ported", "device", "card")
+        "act_quant", "fuse_merge", "tpu_native_crops_per_sec",
+        "tpu_native_vs_w48", "tpu_native_flops_per_crop", "tpu_native_mfu",
+        "tpu_native_by_batch", "headline_family", "best_gated_crops_per_sec",
+        "device", "card")
 E2E_KEYS = ("e2e_crops_per_sec", "e2e_windows", "e2e_cold_crops_per_sec",
             "e2e_vs_core", "e2e_transport", "h2d_kb_per_crop",
             "h2d_mb_per_sec")
@@ -136,12 +141,25 @@ def test_bench_prints_one_json_line(cpu_line):
     w = line["windows"]
     assert w["n"] == bench.REPEATS == 5
     assert w["min"] <= line["value"] <= w["max"]
+    # the native half, and the root bench's headline over both families
+    nat = line["tpu_native_by_batch"]
+    assert sorted(nat) == ["4", "8"]
+    assert line["tpu_native_crops_per_sec"] == nat["8"]["crops_per_sec"] > 0
+    assert line["tpu_native_vs_w48"] == pytest.approx(
+        line["tpu_native_crops_per_sec"] / line["value"])
+    assert line["tpu_native_flops_per_crop"] > 0
+    best = max(line["value"], line["tpu_native_crops_per_sec"])
+    assert line["best_gated_crops_per_sec"] == best
+    assert line["headline_family"] == (
+        "hrnet_w48_parity" if best == line["value"] else "tpu_native_stride8")
+    assert line["act_quant"] == "none" and not line["fuse_merge"]
 
 
 def test_bench_cpu_line_has_no_device_metrics(cpu_line, cpu_model):
     line, _ = cpu_line
     assert line["device"] == "cpu" and line["card"] is None
     assert line["mfu"] is None and line["flops_per_crop"] > 0
+    assert line["tpu_native_mfu"] is None
     e2e = bench.e2e_fields(cpu_model, 100.0, epochs=1, n_images=3,
                            repeats=2)
     assert sorted(e2e) == sorted(E2E_KEYS)
@@ -162,3 +180,27 @@ def test_bench_e2e_windows(tmp_path, cpu_model):
     assert r["crops_done"] == per_epoch * (1 + cold + 2)
     assert r["min"] <= r["crops_per_sec"] <= r["max"]
     assert (r["cold_crops_per_sec"] is not None) == cold
+
+
+def test_bench_w48_switches_of_the_root_bench(monkeypatch):
+    """BENCH_ACT_QUANT / BENCH_FUSE_MERGE reach the model (as in the root
+    bench); BENCH_NATIVE=0 leaves the native half out."""
+    from contextlib import redirect_stdout
+    import io
+    env = {"BENCH_BATCH": "4", "BENCH_ITERS": "1", "BENCH_WARMUP": "1",
+           "BENCH_E2E": "0", "BENCH_NATIVE": "0", "BENCH_ACT_QUANT": "int8",
+           "BENCH_FUSE_MERGE": "1"}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    built = []
+    real = bench.bench_core
+    monkeypatch.setattr(bench, "bench_core", lambda model, *a: built.append(
+        model.hrnet) or real(model, *a))
+    with redirect_stdout(io.StringIO()):
+        line = bench.main(cfgs=fixtures.shrink_hrnet(demo_config()),
+                          device="cpu")
+    assert line["act_quant"] == "int8" and line["fuse_merge"]
+    assert len(built) == 1
+    assert built[0].act_quant == "int8" and built[0].fuse_merge
+    assert "tpu_native_crops_per_sec" not in line
+    assert line["headline_family"] == "hrnet_w48_parity"

@@ -271,7 +271,7 @@ def test_odd_plans_fit_and_cover_each_position_once(c, tile):
 def test_plan_passes_and_warp_grid():
     """C=256 at 8x8: 4 M tiles per warp row, 2 per pass -> 2 passes of
     conv1, 1 of conv2; C=80 (5 N tiles) leaves 3 warps idle."""
-    plan = fb.plan_for(256)
+    plan = fb.plan_for(256, (8, 8, 1, 48))
     assert (plan.nt, plan.wn, plan.wm, plan.mt) == (4, 4, 2, 2)
     assert (_passes(plan, 1), _passes(plan, 2)) == (2, 1)
     plan = fb.plan_for(80)

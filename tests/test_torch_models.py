@@ -160,14 +160,20 @@ def test_lifter_matches(rng, out_size):
 
 
 def test_queued_options_raise():
-    cfg = default_demo_config()
-    for key, val in (("head_type", "heatmap"), ("fuse_merge", True),
-                     ("act_quant", "int8")):
-        c = demo_config()
-        c["heatmapModel"][key] = val
-        with pytest.raises(NotImplementedError):
-            th.build_hrnet(c)
+    """What the port still refuses: an unknown head_type, an unknown
+    heatmapModel.name and the facade's post_process(visualize=True) (the
+    visualisation is queued); every model, head and option of the JAX
+    factory builds (tests/test_torch_families.py)."""
+    from egonet_tpu_torch.models.egonet import EgoNet
     from egonet_tpu_torch.models.factory import build_heatmap_model
-    cfg["heatmapModel"]["name"] = "tpu_native"
+    c = fixtures.shrink_hrnet(demo_config())
+    c["heatmapModel"]["head_type"] = "segmentation"
     with pytest.raises(NotImplementedError):
-        build_heatmap_model(cfg)
+        th.build_hrnet(c)
+    c = demo_config()
+    c["heatmapModel"]["name"] = "vit"
+    with pytest.raises(NotImplementedError):
+        build_heatmap_model(c)
+    net = EgoNet(fixtures.shrink_hrnet(demo_config()), device="cpu")
+    with pytest.raises(NotImplementedError):
+        net.post_process({}, visualize=True)

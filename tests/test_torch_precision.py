@@ -62,26 +62,27 @@ def _shrunk():
 
 class _JaxHeadCapture:
     """Stands in for the JAX EgoNet's ``hrnet`` module: runs its ``apply``
-    with the coordinate head's last conv ("head2.4", the sigmoid's input)
-    captured, and keeps that and the heatmaps."""
+    with the coordinate head's last conv (``layer``, the sigmoid's input:
+    "head2.4" in the HRNet) captured, and keeps that and the heatmaps."""
 
-    def __init__(self, net):
-        self.net, self.got = net, {}
+    def __init__(self, net, layer="head2.4"):
+        self.net, self.layer, self.got = net, layer, {}
 
     def apply(self, variables, crops, **kwargs):
         (maps, coords), state = self.net.apply(
             variables, crops, capture_intermediates=(
-                lambda mdl, _method: mdl.name == "head2.4"),
+                lambda mdl, _method: mdl.name == self.layer),
             mutable=["intermediates"], **kwargs)
         self.got = {"maps": maps,
-                    "logits": state["intermediates"]["head2.4"][
+                    "logits": state["intermediates"][self.layer][
                         "__call__"][0]}
         return maps, coords
 
 
-def _jax_outputs(seed, n=N, cfgs=None):
+def _jax_outputs(seed, n=N, cfgs=None, logits_layer="head2.4"):
     """The JAX harness's fp32 device program run eagerly -> the port's
-    ``harness_outputs`` dict."""
+    ``harness_outputs`` dict (``logits_layer``: the coordinate head's last
+    conv)."""
     import jax.numpy as jnp
     from egonet_tpu.config import default_demo_config
     from egonet_tpu.models.egonet import EgoNet, pack_meta
@@ -90,7 +91,7 @@ def _jax_outputs(seed, n=N, cfgs=None):
     cfgs = cfgs or default_demo_config()
     images, boxes = precision.harness_inputs(n, seed)
     model = EgoNet(cfgs, pre_trained=False, dtype=jnp.float32, rng_seed=seed)
-    model.hrnet = head = _JaxHeadCapture(model.hrnet)
+    model.hrnet = head = _JaxHeadCapture(model.hrnet, logits_layer)
     width, height = model.resolution
     mats = affine.crop_matrices_for_boxes(boxes, (height, width),
                                           height / width, 1.1)

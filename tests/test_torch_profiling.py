@@ -125,7 +125,7 @@ def test_device_trace_summary(tmp_path):
     ev = [
         _x("user_annotation", "h2d", 0, 10),
         _x("cuda_runtime", "cudaMemcpyAsync", 2, 1, corr=1),
-        _x("user_annotation", "hrnet", 10, 40),
+        _x("user_annotation", "backbone", 10, 40),
         _x("cuda_runtime", "cudaLaunchKernel", 12, 1, corr=2),
         _x("cuda_driver", "cuLaunchKernelEx", 14, 1, corr=3),
         _x("cuda_runtime", "cudaLaunchKernel", 16, 1, corr=4),
@@ -144,9 +144,9 @@ def test_device_trace_summary(tmp_path):
     s = profiling.summarize_trace(str(tmp_path))
     assert s["total_ms"] == pytest.approx(0.055)
     assert s["by_span"]["h2d"] == pytest.approx(0.005)
-    assert s["by_span"]["hrnet"] == pytest.approx(0.035)
+    assert s["by_span"]["backbone"] == pytest.approx(0.035)
     assert s["by_span"]["rigid"] == pytest.approx(0.015)
-    assert s["host_by_span"]["hrnet"] == pytest.approx(0.040)
+    assert s["host_by_span"]["backbone"] == pytest.approx(0.040)
     assert sum(s["by_span"].values()) == pytest.approx(s["total_ms"])
     cats = dict(s["by_category"])
     assert cats["memcpy H2D"] == pytest.approx(0.005)
@@ -156,4 +156,4 @@ def test_device_trace_summary(tmp_path):
     # window 0..90 us; busy 5-10, 20-55, 70-80, 85-90 -> 55 us busy
     assert s["idle"]["share"] == pytest.approx(35 / 90)
     assert s["idle"]["gaps"][0] == (pytest.approx(0.015), "rigid")
-    assert s["idle"]["gaps"][1] == (pytest.approx(0.01), "hrnet")
+    assert s["idle"]["gaps"][1] == (pytest.approx(0.01), "backbone")

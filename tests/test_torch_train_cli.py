@@ -279,3 +279,26 @@ def test_profile_model_train_splits_one_step_by_stage(tmp_path):
     assert summary["idle"] is None                 # no device on the CPU
     with pytest.raises(ValueError, match="unknown span"):
         profiling.span("no_such_stage")
+
+
+@pytest.mark.parametrize("which", ["native", "pedestrian"])
+def test_profile_model_takes_the_native_and_pedestrian_configs(tmp_path,
+                                                                which):
+    """``profile_model`` on the native and the W32 pedestrian training
+    configs (shrunk): inference charges the keypoint model to the
+    ``backbone`` span; ``--train`` splits a step by stage."""
+    from egonet_tpu_torch.tools import profile_model
+    from egonet_tpu_torch.utils import profiling
+    cfg = (fixtures.shrink_tpu_native(tcfg.tpu_native_config(),
+                                      grid_stride=8)
+           if which == "native"
+           else fixtures.shrink_hrnet(tcfg.train_igrs_ped_config()))
+    summary = profile_model.main(
+        ["--iters", "1", "--batch", "4", "--trace-dir", str(tmp_path)],
+        cfgs=cfg, device="cpu")
+    assert list(summary["by_span"]) == list(profiling.SPANS)
+    assert summary["host_by_span"]["backbone"] > 0
+    summary = profile_model.main(
+        ["--train", "--iters", "1", "--trace-dir", str(tmp_path / "t")],
+        cfgs=cfg, device="cpu")
+    assert summary["host_by_span"]["forward"] > 0
