@@ -94,12 +94,36 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    for the W48 and the native family (``tpu_native_*``,
    ``headline_family``), the e2e loop, H2D rate.  Drift phase (``tools/precision_drift.py``):
    bf16 against fp32 through the default kernel.
+9b. Serve phase (``serve`` line; ``tools/bench_serve.py``'s workload
+   in-process): the W48 demo config at full width (bf16, seeded random
+   weights, the harness's LS stats) behind ``serving.PoseServer`` on the
+   card, 128 requests of 6 boxes from 16 client threads over 16 PNG frames
+   of 375x1242, settle passes, one timed pass and 12 single-stream
+   requests: req/s, p50 / p90 / max ms, micro-batches, idle dispatches,
+   decoder and cache hits; the tiled kernel's launches over the whole run
+   (counts set to 0 just before, read just after) must be 104 per served
+   micro-batch; every timed response is held against the offline facade
+   (``EgoNet.__call__``) on the same frame and boxes (median |d ry| and
+   |d alpha| under 0.05 deg, max under 0.5 deg).  Then 32 requests with
+   the stencil selected (104 stencil launches per micro-batch, the same
+   bar) and one pass of the native family through the same server.
+9c. Export phase (``export`` line; ``io/export.py``): buckets 16 and 128
+   of the W48 ``_core`` exported on the card (weight-agnostic .pt2, 16
+   canvases of 384x1280), loaded, the live weights laid in: 104 fused-op
+   nodes per graph, 104 launches per call, outputs within one bf16 step
+   of the live program's on kpts and 1e-3 rad on the angles; a second
+   seeded weight set through the same artifact against a live model built
+   with it; artifact bytes, export and load seconds, ms per call of both
+   programs (CUDA events, 10 calls after 3), and the custom op's host
+   microseconds per call beside a direct launch's.
 10. Prints one JSON line per kernel shape and phase, both kernels' earlier
    times per forward (past figures from PERF.md, labelled so), the
    {"kernels": [...]} line (every number in it measured or, for
    ``bound_ms``, reckoned in this run; per W48 forward, with every shape's
    row under ``shapes`` and the W32 forward's sums under
-   ``w32_forward``), the run's seconds, the card line, and last
+   ``w32_forward``, the serve phase's launches and micro-batches under
+   ``serve_launches`` / ``served_batches``, the exported programs'
+   launches per call), the run's seconds, the card line, and last
    {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -343,11 +367,16 @@ def kernel_phase(torch, fb, sweep, sweep_lib):
             torch.testing.assert_close(y.float(), ref.float(), atol=5e-2,
                                        rtol=2e-2)
         ops_ms, bytes_ms = _bound(c, h, h)
+        # ms: the default plan's kernel launched directly (device time);
+        # op_ms: through the custom op, whose host dispatch can outlast a
+        # small launch
+        default = fb._default_launcher(c)
         row = {"shape": {"C": c, "H": h, "W": h, "B": BATCH},
                "tile": list(fb.tile_for(c)),
                "plan": dataclasses.asdict(fb.plan_for(c)),
                "max_abs_err": err,
-               "ms": _time_ms(torch, kernel),
+               "ms": _time_ms(torch, lambda: kernel(default)),
+               "op_ms": _time_ms(torch, kernel),
                "plain_ms": _time_ms(torch, plain, iters=5),
                "library_ms": _time_ms(torch, library),
                "alt_tiles_ms": {_tile_name(t): _time_ms(
@@ -502,8 +531,8 @@ def stencil_kernel_phase(torch, fb, st, sweep, sweep_lib):
         def plain():
             return st.fused_basic_block_reference(x, w1, b1, w2, b2)
 
-        def tiled():
-            return fb.fused_basic_block(x, w1, b1, w2, b2)
+        def tiled(launcher=fb._default_launcher(c)):
+            return fb._launch(x, w1, b1, w2, b2, *launcher)
 
         library = _library_block(torch, x, w1, b1, w2, b2)
         ref = plain()
@@ -518,10 +547,12 @@ def stencil_kernel_phase(torch, fb, st, sweep, sweep_lib):
         err = (y.float() - ref.float()).abs().max().item()
         assert torch.isfinite(y.float()).all()
         ops_ms, bytes_ms = _bound(c, h, h)
+        default = st._default_launcher(st.plan_for(c))
         row = {"shape": {"C": c, "H": h, "W": h, "B": BATCH},
                "plan": _plan_summary(st, st.plan_for(c), st.library()),
                "max_abs_err": err,
-               "ms": _time_ms(torch, kernel),
+               "ms": _time_ms(torch, lambda: kernel(default)),
+               "op_ms": _time_ms(torch, kernel),
                "plain_ms": _time_ms(torch, plain, iters=5),
                "library_ms": _time_ms(torch, library),
                "tiled_ms": _time_ms(torch, tiled),
@@ -1318,11 +1349,14 @@ def kernel_ped_phase(torch, fb, st, tiled_sweep, tiled_lib, stencil_sweep,
                     yo.float(), fb.fused_basic_block_reference(
                         xo, w1, b1, w2, b2).float(), atol=5e-2, rtol=2e-2)
             plan = mod.plan_for(c)
+            default = (fb._default_launcher(c) if mod is fb
+                       else st._default_launcher(plan))
             row = {"shape": {"C": c, "H": h, "W": h, "B": BATCH},
                    "tile": list(mod.tile_for(c)),
                    "max_abs_err": (y.float() - ref.float()).abs().max()
                    .item(),
-                   "ms": _time_ms(torch, kernel), "plain_ms": plain_ms,
+                   "ms": _time_ms(torch, lambda d=default: kernel(d)),
+                   "op_ms": _time_ms(torch, kernel), "plain_ms": plain_ms,
                    "library_ms": library_ms,
                    "alt_ms": {n: _time_ms(torch, lambda a=a: kernel(a),
                                           iters=10) for n, a in alts},
@@ -1624,6 +1658,277 @@ def options_phase(torch, np, fb, st, annot, ry_w48, root, card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the serving and export phases
+# ---------------------------------------------------------------------------
+
+# bench_serve's workload; the stencil's short pass takes the first requests
+SERVE_REQUESTS, SERVE_BOXES, SERVE_WORKERS, SERVE_FRAMES = 128, 6, 16, 16
+SERVE_WAIT_MS, STENCIL_SERVE_REQUESTS = 80.0, 32
+# served against offline bf16 (other bucket and transport): the JAX
+# package's bf16 budget
+SERVE_MEDIAN_DEG, SERVE_MAX_DEG = 0.05, 0.5
+EXPORT_BUCKETS = (16, 128)
+EXPORT_ANGLE_RAD = 1e-3
+
+
+def _serve_pass(torch, fb, st, model, payloads, settle, n_single):
+    """A warmed PoseServer over ``model`` driven by bench_serve.run, both
+    kernels' launch counts set to 0 just before and read just after.
+    Returns (the line, the timed pass's responses, {"tiled": n,
+    "stencil": n} over the whole run, batches over the whole run, warmup
+    seconds)."""
+    from egonet_tpu_torch.serving import PoseServer
+    from egonet_tpu_torch.tools import bench_serve
+    server = PoseServer(model, port=0, max_images=16,
+                        max_wait_ms=SERVE_WAIT_MS).start()
+    try:
+        t0 = time.perf_counter()
+        server.warmup()
+        warm_s = time.perf_counter() - t0
+        b0 = server.batcher.stats["batches"]
+        fb.fused_basic_block.launches = 0
+        st.fused_basic_block_stencil.launches = 0
+        line, bodies = bench_serve.run(server, payloads, SERVE_WORKERS,
+                                       settle=settle, n_single=n_single)
+        launches = {"tiled": fb.fused_basic_block.launches,
+                    "stencil": st.fused_basic_block_stencil.launches}
+        batches = server.batcher.stats["batches"] - b0
+    finally:
+        server.stop()
+    return line, bodies, launches, batches, warm_s
+
+
+def _served_vs_offline(np, model, payloads, bodies):
+    """|d ry| and |d alpha| (deg) of every served instance against the
+    offline facade (``EgoNet.__call__``) on the same frame and boxes, 16
+    requests a call, each under a key of its own."""
+    d_ry, d_alpha = [], []
+    for start in range(0, len(payloads), 16):
+        chunk = range(start, min(start + 16, len(payloads)))
+        annot = {"path": [f"{i}" for i in chunk],
+                 "images": [model.load_image(payloads[i]["image_path"])
+                            for i in chunk],
+                 "boxes": [np.asarray(payloads[i]["boxes"]) for i in chunk],
+                 "K": [np.asarray(payloads[i]["K"]) for i in chunk]}
+        records = model(annot)
+        for i in chunk:
+            rec, inst = records[f"{i}"], bodies[i]["instances"]
+            d_ry.append(_d_deg(np, np.asarray([x["rot_y"] for x in inst]),
+                               rec["euler_angles"][:, 1]))
+            d_alpha.append(_d_deg(np, np.asarray([x["alpha"] for x in inst]),
+                                  rec["alphas"]))
+    d_ry, d_alpha = np.concatenate(d_ry), np.concatenate(d_alpha)
+    row = {"median_d_ry_deg": float(np.median(d_ry)),
+           "max_d_ry_deg": float(d_ry.max()),
+           "median_d_alpha_deg": float(np.median(d_alpha)),
+           "max_d_alpha_deg": float(d_alpha.max())}
+    for key in ("ry", "alpha"):
+        assert row[f"median_d_{key}_deg"] < SERVE_MEDIAN_DEG, row
+        assert row[f"max_d_{key}_deg"] < SERVE_MAX_DEG, row
+    return row
+
+
+def serve_phase(torch, np, fb, st, card):
+    """bench_serve's workload in-process on the W48 demo config at full
+    width (bf16, seeded random weights, the precision harness's LS stats)
+    on the card: a PoseServer answers the settle passes, the timed pass of
+    128 requests and 12 single-stream requests, every tiled launch counted
+    (104 per served micro-batch); every timed response is held against
+    the offline facade.  Then a 32-request pass with the stencil selected
+    (104 stencil launches per batch, the same bar) and one pass of the
+    native family through the same server (no fused launch)."""
+    from egonet_tpu_torch.config import demo_config, native_demo_config
+    from egonet_tpu_torch.tools import bench_serve
+    t_phase = time.perf_counter()
+    model = _slice_model(torch, demo_config())
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = bench_serve.make_frames(tmp, SERVE_FRAMES)
+        payloads = bench_serve.make_payloads(paths, SERVE_REQUESTS,
+                                             SERVE_BOXES)
+        line, bodies, launches, batches, warm_s = _serve_pass(
+            torch, fb, st, model, payloads, settle=8, n_single=12)
+        assert launches == {"tiled": 104 * batches, "stencil": 0}, (
+            launches, batches)
+        assert line["fused_launches"] == 104 * line["batches"] > 0, line
+        row = {**line, "warmup_s": warm_s, "run_launches": launches,
+               "run_batches": batches,
+               "vs_offline": _served_vs_offline(np, model, payloads,
+                                                bodies)}
+
+        model.hrnet.prepare_inference(stencil="1")
+        few = payloads[:STENCIL_SERVE_REQUESTS]
+        sline, sbodies, slaunches, sbatches, _ = _serve_pass(
+            torch, fb, st, model, few, settle=0, n_single=0)
+        assert slaunches == {"tiled": 0, "stencil": 104 * sbatches}, (
+            slaunches, sbatches)
+        row["stencil"] = {
+            "requests": len(few), "req_per_s": sline["value"],
+            "p50_ms": sline["p50_ms"], "max_ms": sline["max_ms"],
+            "batches": sline["batches"], "launches": slaunches,
+            "vs_offline": _served_vs_offline(np, model, few, sbodies)}
+        model.hrnet.prepare_inference(stencil="0")
+        del model
+        torch.cuda.empty_cache()
+
+        native = _slice_model(torch, native_demo_config())
+        nline, nbodies, nlaunches, _, _ = _serve_pass(
+            torch, fb, st, native, payloads, settle=0, n_single=0)
+        assert nlaunches == {"tiled": 0, "stencil": 0}, nlaunches
+        assert all(np.isfinite([x["rot_y"] for x in b["instances"]]).all()
+                   for b in nbodies)
+        row["native"] = {"req_per_s": nline["value"],
+                         "p50_ms": nline["p50_ms"],
+                         "p90_ms": nline["p90_ms"],
+                         "max_ms": nline["max_ms"],
+                         "batches": nline["batches"]}
+        del native
+        torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    row["card"] = card
+    print(json.dumps({"serve": row}), flush=True)
+    return row
+
+
+def _export_inputs(torch, np, annot, bucket, n_img=16, canvas_hw=(384, 1280)):
+    """(images [n_img, 384, 1280, 3] u8, meta [bucket, 18]) on the card:
+    the slice's frames on the canvases in turn and its boxes' crops over
+    them, every row real."""
+    from egonet_tpu_torch.models.egonet import pack_meta
+    from egonet_tpu_torch.ops import affine
+    images = np.zeros((n_img,) + tuple(canvas_hw) + (3,), np.uint8)
+    for i in range(n_img):
+        img = annot["images"][i % len(annot["images"])]
+        images[i, :img.shape[0], :img.shape[1]] = img
+    boxes = np.concatenate(annot["boxes"])
+    idx = np.arange(bucket)
+    mats = affine.crop_matrices_for_boxes(boxes[idx % len(boxes)], (256, 256),
+                                          1.0, 1.1)
+    K = annot["K"][0]
+    meta = pack_meta(mats["inv"], idx % n_img, np.ones(bucket),
+                     np.full(bucket, K[0, 0]), np.full(bucket, K[0, 2]),
+                     np.tile([1242.0, 375.0], (bucket, 1)))
+    return (torch.from_numpy(images).cuda(), torch.from_numpy(meta).cuda())
+
+
+def _export_gap(torch, np, got, live):
+    """Kpts in units of one bf16 step of the live value, angles (ry,
+    alpha) in rad, between the exported and the live program's flat
+    outputs."""
+    got, live = got.double().cpu(), live.double().cpu()
+    step = 2.0 ** (torch.floor(torch.log2(live[:, :66].abs().clamp_min(
+        2.0 ** -6))) - 7)
+    kpts_steps = float(((got[:, :66] - live[:, :66]).abs() / step).max())
+    ang = (got[:, [162 + 1, 162 + 6]] - live[:, [162 + 1, 162 + 6]]).abs()
+    ang = torch.minimum(ang % (2 * np.pi), 2 * np.pi - ang % (2 * np.pi))
+    return kpts_steps, float(ang.max())
+
+
+def export_phase(torch, np, fb, st, annot, card):
+    """Export buckets 16 and 128 of the W48 ``_core`` on the card
+    (``io/export.py``: weight-agnostic .pt2, 16 canvases of 384x1280),
+    load them, lay in the live model's weights and hold each against the
+    live ``_core`` on the same inputs (kpts within one bf16 step, angles
+    1e-3 rad): 104 fused-op nodes in each graph and 104 launches per call;
+    then a second seeded weight set laid into the same artifact against a
+    live model built with it.  Times both programs per call (CUDA events
+    over 10 calls after 3), and the custom op's host cost per call against
+    a direct launch of the kernel."""
+    from egonet_tpu_torch.config import demo_config
+    from egonet_tpu_torch.io import export
+    t_phase = time.perf_counter()
+    model = _slice_model(torch, demo_config())
+    row = {"buckets": {}, "card": card}
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        manifest = export.export_shape_set(model, out, buckets=EXPORT_BUCKETS)
+        row["export_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        programs, loaded = export.load_exported(out)
+        row["load_s"] = time.perf_counter() - t0
+    ls = {k: v.cpu().numpy() for k, v in model.ls_stats.items()}
+    for b in EXPORT_BUCKETS:
+        entry = manifest["artifacts"][str(b)]
+        assert entry["fused_nodes"] == 104, entry
+        program = export.bind(programs[b], loaded, model.hrnet.state_dict(),
+                              model.lifter.state_dict(), ls)
+        images, meta = _export_inputs(torch, np, annot, b)
+        with torch.inference_mode():
+            live = model._core(images, meta, alpha_mode="proj")
+            fb.fused_basic_block.launches = 0
+            got = program(images, meta)
+            torch.cuda.synchronize()
+            launches = fb.fused_basic_block.launches
+            assert launches == 104, launches
+            kpts_steps, ang = _export_gap(torch, np, got, live)
+            assert torch.isfinite(got).all()
+            assert kpts_steps <= 1.0 and ang < EXPORT_ANGLE_RAD, (
+                kpts_steps, ang)
+            live_ms = _time_ms(torch, lambda: model._core(
+                images, meta, alpha_mode="proj"), iters=10)
+            exported_ms = _time_ms(torch, lambda: program(images, meta),
+                                   iters=10)
+        row["buckets"][str(b)] = {
+            "bytes": entry["bytes"], "fused_nodes": entry["fused_nodes"],
+            "launches_per_call": launches, "kpts_bf16_steps": kpts_steps,
+            "max_d_angle_rad": ang, "live_ms": live_ms,
+            "exported_ms": exported_ms}
+    # a second weight set through the bucket-16 artifact
+    from egonet_tpu_torch.models.egonet import EgoNet
+    from egonet_tpu_torch.precision import _plausible_ls_stats
+    other = EgoNet(demo_config(), device="cuda", rng_seed=7)
+    other.load_state(ls_stats=_plausible_ls_stats())
+    program = export.bind(programs[16], loaded, other.hrnet.state_dict(),
+                          other.lifter.state_dict(),
+                          {k: v.cpu().numpy()
+                           for k, v in other.ls_stats.items()})
+    images, meta = _export_inputs(torch, np, annot, 16)
+    with torch.inference_mode():
+        kpts_steps, ang = _export_gap(
+            torch, np, program(images, meta),
+            other._core(images, meta, alpha_mode="proj"))
+        first = model._core(images, meta, alpha_mode="proj")
+        moved = float((first - other._core(images, meta,
+                                           alpha_mode="proj")).abs().max())
+    assert kpts_steps <= 1.0 and ang < EXPORT_ANGLE_RAD, (kpts_steps, ang)
+    assert moved > 1.0, moved              # the weights did change
+    row["second_weights"] = {"kpts_bf16_steps": kpts_steps,
+                             "max_d_angle_rad": ang,
+                             "max_d_vs_first_weights": moved}
+    del other
+    row["op_host_us"] = _op_overhead(torch, fb)
+    row["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"export": row}), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return row
+
+
+def _op_overhead(torch, fb, n=500):
+    """Host microseconds per call of the tiled kernel through its custom
+    op and through a direct launch, at a block whose kernel takes a few
+    microseconds (C=48, 8x8, one image: one thread block), so the host's
+    enqueue is the time; the device synchronised at the end of each run
+    of ``n`` calls."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x, (w1, b1, w2, b2) = _block_inputs(torch, fb, g, 48, 8, 1)
+    launcher = fb._default_launcher(48)
+    out = {}
+    for name, fn in (("op", lambda: fb.fused_basic_block(x, w1, b1, w2, b2)),
+                     ("direct", lambda: fb._launch(x, w1, b1, w2, b2,
+                                                   *launcher))):
+        with torch.inference_mode():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / n * 1e6
+    return out
+
+
 def _ped_entry(rows, launches):
     """The W32 forward's share of a kernel's entry: per-shape rows summed
     over one W32 pedestrian forward at 32 crops."""
@@ -1720,6 +2025,10 @@ def main() -> int:
     bench_phase()
     torch.cuda.empty_cache()
     drift_phase()
+    torch.cuda.empty_cache()
+    serve = serve_phase(torch, np, fb, st, card)
+    torch.cuda.empty_cache()
+    exported = export_phase(torch, np, fb, st, annot, card)
 
     assert sum(PER_FORWARD.values()) == result["launches_per_forward"]
     print(json.dumps({"earlier": EARLIER}), flush=True)
@@ -1738,6 +2047,18 @@ def main() -> int:
         path = "tiled" if name == "fused_basic_block" else "stencil"
         entry["w32_forward"] = _ped_entry(
             ped_rows[name], ped["eval_launches"][path][path])
+        # launches of the served W48 micro-batches (serve phase: the whole
+        # W48 run for the tiled kernel, the 32-request pass for the
+        # stencil) and per call of the exported bucket programs
+        served = (serve["run_launches"]["tiled"]
+                  if path == "tiled" else serve["stencil"]["launches"][path])
+        entry["serve_launches"] = served
+        entry["served_batches"] = (serve["run_batches"] if path == "tiled"
+                                   else serve["stencil"]["batches"])
+        if path == "tiled":
+            entry["export_launches_per_call"] = {
+                b: r["launches_per_call"]
+                for b, r in exported["buckets"].items()}
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"run_s": time.perf_counter() - t_run}), flush=True)

@@ -1,8 +1,9 @@
 """Host-side (NumPy) 3D transformation utilities (copy of
-``egonet_tpu/common/transformation.py`` without ``pnp_refine``, which
-needs cv2 and comes with refinement): world / camera frames, the
-Procrustes similarity transform and the weighted Kabsch rigid transform
-with the reflection fix.  The metrics use them."""
+``egonet_tpu/common/transformation.py``): world / camera frames, the
+Procrustes similarity transform, the weighted Kabsch rigid transform with
+the reflection fix (the metrics use them) and ``pnp_refine``, whose
+OpenCV is imported inside it (an ImportError naming cv2 where it is
+missing)."""
 
 from __future__ import annotations
 
@@ -79,3 +80,23 @@ def compute_rigid_transform(X: np.ndarray, Y: np.ndarray, W=None):
 def procrustes_transform(X: np.ndarray, Y: np.ndarray):
     R, t = compute_rigid_transform(X, Y)
     return R @ X + t
+
+
+def pnp_refine(prediction: np.ndarray, observation: np.ndarray,
+               intrinsics: np.ndarray, dist_coeffs=None):
+    """Refine a 3D prediction against 2D observations with iterative PnP
+    (host-side, optional; uses OpenCV).  Returns the [3, N] refined
+    points, or ``prediction`` itself where solvePnP fails."""
+    try:
+        import cv2
+    except ImportError as exc:
+        raise ImportError("pnp_refine needs cv2 (OpenCV's solvePnP), which "
+                          "is not installed") from exc
+    if dist_coeffs is None:
+        dist_coeffs = np.zeros((4, 1))
+    success, rvec, tvec = cv2.solvePnP(
+        prediction, observation, intrinsics, dist_coeffs,
+        flags=cv2.SOLVEPNP_ITERATIVE)
+    if not success:
+        return prediction
+    return cv2.Rodrigues(rvec)[0] @ prediction.T + tvec

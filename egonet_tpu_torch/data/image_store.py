@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import threading
 import time
 
 import numpy as np
@@ -61,6 +62,12 @@ class ImageStore:
             os.makedirs(disk_dir, exist_ok=True)
         self.stats = {"ram_hits": 0, "disk_hits": 0, "decodes": 0,
                       "decode_s": 0.0, "decoder": available_decoder()}
+        # a server's handler threads call get() concurrently
+        self._stats_lock = threading.Lock()
+
+    def _count(self, key: str, amount=1) -> None:
+        with self._stats_lock:
+            self.stats[key] += amount
 
     def _disk_path(self, path: str) -> str:
         st = os.stat(path)
@@ -71,22 +78,22 @@ class ImageStore:
     def get(self, path: str) -> np.ndarray:
         img = self._lru.get(path)
         if img is not None:
-            self.stats["ram_hits"] += 1
+            self._count("ram_hits")
             return img
         if self.disk_dir:
             dp = self._disk_path(path)
             if os.path.exists(dp):
                 try:
                     img = np.load(dp)
-                    self.stats["disk_hits"] += 1
+                    self._count("disk_hits")
                     self._lru.put(path, img)
                     return img
                 except (ValueError, OSError):
                     pass                      # corrupt entry: decode again
         t0 = time.perf_counter()
         img = decode_image(path)
-        self.stats["decode_s"] += time.perf_counter() - t0
-        self.stats["decodes"] += 1
+        self._count("decode_s", time.perf_counter() - t0)
+        self._count("decodes")
         self._lru.put(path, img)
         if self.disk_dir:
             dp = self._disk_path(path)

@@ -1,7 +1,8 @@
 """PNG reading and writing with the standard library and numpy alone
 (``zlib``, ``struct``), for hosts without cv2 or PIL.
 
-:func:`decode` reads 8-bit, non-interlaced gray, RGB and RGBA images with
+:func:`decode` (a file) and :func:`decode_bytes` (bytes, as a request
+carries them) read 8-bit, non-interlaced gray, RGB and RGBA images with
 all five row filters and returns RGB uint8 [H, W, 3] with cv2's
 ``IMREAD_COLOR`` semantics: gray is replicated, alpha is dropped.
 Palette, 16-bit and interlaced images raise ``ValueError``.
@@ -16,6 +17,7 @@ use them (PERF.md has the measured time).
 
 from __future__ import annotations
 
+import io
 import struct
 import zlib
 
@@ -120,14 +122,25 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def decode(path: str) -> np.ndarray:
-    """PNG -> RGB uint8 [H, W, 3] (cv2 ``IMREAD_COLOR`` semantics)."""
-    header, idat = None, []
+    """PNG file -> RGB uint8 [H, W, 3] (cv2 ``IMREAD_COLOR`` semantics)."""
     with open(path, "rb") as f:
-        for kind, data in _chunks(f):
-            if kind == b"IHDR":
-                header = _header(data)
-            elif kind == b"IDAT":
-                idat.append(data)
+        return decode_bytes(f.read(), path)
+
+
+def is_png(data: bytes) -> bool:
+    """Whether ``data`` starts with the PNG signature."""
+    return data[:8] == _SIGNATURE
+
+
+def decode_bytes(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """PNG bytes -> RGB uint8 [H, W, 3] (cv2 ``IMREAD_COLOR`` semantics);
+    ``path`` names the source in errors."""
+    header, idat = None, []
+    for kind, body in _chunks(io.BytesIO(data)):
+        if kind == b"IHDR":
+            header = _header(body)
+        elif kind == b"IDAT":
+            idat.append(body)
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     color, depth = header["color_type"], header["bit_depth"]

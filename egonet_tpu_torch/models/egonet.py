@@ -183,11 +183,16 @@ class EgoNet:
     # the device program
     # ------------------------------------------------------------------
 
-    def _core(self, images, meta, img_idx, *, alpha_mode: str):
+    def _core(self, images, meta, img_idx=None, *, alpha_mode: str):
         """Canvas mode: images [B, Hc, Wc, 3] uint8; meta [N, META_COLS];
-        img_idx [N] host ints (each instance's frame, read as a view)."""
+        img_idx [N] host ints (each instance's frame, read as a view), or
+        None: the frame indices are read from meta's column 8 on the
+        device and the frames gathered (the exported program's form, whose
+        graph takes no host ints; ``io/export.py``)."""
         width, height = self.resolution
-        inv_mats, _o, _i, valid, K_f, K_cx, img_wh, _b = _unpack_meta(meta)
+        inv_mats, _o, idx, valid, K_f, K_cx, img_wh, _b = _unpack_meta(meta)
+        if img_idx is None:
+            img_idx = idx.long()
         with span("warp"):
             patches = affine.warp_affine_separable(
                 images, inv_mats, img_idx, (height, width), dtype=self.dtype)
@@ -479,15 +484,18 @@ class EgoNet:
     def post_process(self, records: dict, save_dict=None, alpha_mode=None,
                      visualize: bool = False, color_dict=None,
                      vis_dir: str | None = None, refine: bool = False):
-        """Write KITTI txts for each image record.
+        """Write KITTI txts (and optional visualizations) for each image
+        record.
 
         With ``kpts_3d_SMOKE`` in a record (external 3D detector), the
         SMOKE center is prepended to the predicted cuboid and, for
         ``alpha_mode='trans'``, alpha is recomputed from that location.
-        ``visualize`` and ``refine`` are not ported yet."""
-        if visualize or refine:
-            raise NotImplementedError(
-                "visualize / refine are not ported yet (queued)")
+        ``refine`` adds each record's PnP-refined cuboids
+        (``kpts_3d_refined``, ``eval/refinement.py``; needs cv2) before the
+        txts are written; ``visualize`` writes ``<stem>_2d.png`` and
+        ``<stem>_3d.png`` into ``vis_dir`` (default: the txts' directory;
+        needs matplotlib)."""
+        import os
         from egonet_tpu_torch.io import kitti_writer
         for img_path, rec in records.items():
             if "kpts_3d_SMOKE" in rec and len(rec.get("kpts_3d_pred", [])):
@@ -503,6 +511,9 @@ class EgoNet:
                     rec["translation"] = centers[:, 0, :]
                     rec["alphas"] = np.mod(alphas + np.pi,
                                            2.0 * np.pi) - np.pi
+            if refine:
+                from egonet_tpu_torch.eval.refinement import refine_record
+                refine_record(rec)
             if "raw_txt_format" in rec:
                 pred_str = kitti_writer.prediction_str(
                     rec["raw_txt_format"], rec["euler_angles"], rec["alphas"])
@@ -510,6 +521,19 @@ class EgoNet:
                 if save_dict and save_dict.get("flag"):
                     kitti_writer.save_txt_file(img_path, pred_str,
                                                save_dict["save_dir"])
+            if visualize:
+                from egonet_tpu_torch.visualization import overlays
+                out_dir = vis_dir or (save_dict or {}).get("save_dir", ".")
+                stem = os.path.basename(img_path)[:-4]
+                if rec.get("kpts_3d_gt") is not None and "K" in rec:
+                    rec["arrow"] = overlays.add_orientation_arrow(
+                        {"kpts_3d_pred": rec["kpts_3d_pred"],
+                         "kpts_3d_gt": rec["kpts_3d_gt"], "K": rec["K"]})
+                overlays.plot_2d_objects(
+                    self.load_image(img_path), rec, color_dict,
+                    save_path=os.path.join(out_dir, f"{stem}_2d.png"))
+                overlays.plot_3d_objects(
+                    rec, save_path=os.path.join(out_dir, f"{stem}_3d.png"))
         return records
 
     def stream_annot_dicts(self, annot_iter, depth: int = 2, **kwargs):

@@ -23,6 +23,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,6 +33,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict = {}
+# held while a library is built or loaded and while a wrapper fills its
+# launcher cache: the first call may come from any thread (a server's
+# dispatch thread), and two builds of one library would race on its files
+LOCK = threading.RLock()
 # per-library build record: {"seconds": float, "log": str} (empty when
 # the library was already up to date)
 BUILD_INFO: dict = {}
@@ -130,9 +135,10 @@ def load(lib) -> ctypes.CDLL:
     """The loaded library ``lib`` (a name or a (name, source, prelude)
     tuple), built first if needed."""
     name = _spec(lib)[0]
-    loaded = _LIBS.get(name)
-    if loaded is None:
-        build([lib])
-        loaded = ctypes.CDLL(_paths(name)[1])
-        _LIBS[name] = loaded
+    with LOCK:
+        loaded = _LIBS.get(name)
+        if loaded is None:
+            build([lib])
+            loaded = ctypes.CDLL(_paths(name)[1])
+            _LIBS[name] = loaded
     return loaded

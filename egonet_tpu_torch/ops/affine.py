@@ -3,7 +3,11 @@ device).  Port of ``egonet_tpu/ops/affine.py``.
 
 Host half: the center/scale crop convention of the original preprocessing
 (cv2-free: the 2x3 matrix comes from the same 3-point correspondence with
-a linear solve), plus the vectorized rot=0 closed form used at inference.
+a linear solve), plus the vectorized rot=0 closed form used at inference,
+``simple_crop`` and ``save_cropped_patches`` (PNGs by the port's encoder).
+Device half, besides the separable warp below: ``warp_affine``, the
+bilinear gather warp of one image for any affine, and ``warp_instances``,
+a batch of crops from one image.
 
 Device half: every EgoNet crop is an axis-aligned scale+translate, so the
 bilinear warp factorizes into a column interpolation and a row
@@ -88,6 +92,24 @@ def transform_preds(coords: np.ndarray, center, scale, output_size):
     """Local patch coordinates -> source-image coordinates."""
     trans = get_affine_transform(center, scale, 0, output_size, inv=True)
     return affine_transform_pts(np.asarray(coords)[:, :2], trans)
+
+
+def simple_crop(image: np.ndarray, center, crop_size) -> np.ndarray:
+    """Rectangular crop around ``center`` with zero padding outside the
+    image (host-side)."""
+    if image.ndim != 3:
+        raise ValueError(f"expected an [H, W, C] image, got {image.shape}")
+    sx = int(center[0] - crop_size[0])
+    ex = int(center[0] + crop_size[0])
+    sy = int(center[1] - crop_size[1])
+    ey = int(center[1] + crop_size[1])
+    out = np.zeros((ey - sy, ex - sx, image.shape[2]), dtype=image.dtype)
+    nsx, nex = max(-sx, 0), min(image.shape[1], ex) - sx
+    nsy, ney = max(-sy, 0), min(image.shape[0], ey) - sy
+    osx, oex = max(sx, 0), min(ex, image.shape[1])
+    osy, oey = max(sy, 0), min(ey, image.shape[0])
+    out[nsy:ney, nsx:nex] = image[osy:oey, osx:oex]
+    return out
 
 
 def generate_xy_map(bbox, resolution, global_size) -> np.ndarray:
@@ -241,9 +263,92 @@ def crop_matrices_for_boxes(boxes: np.ndarray, output_size,
             "bbox_resize": rbs}
 
 
+def save_cropped_patches(img_path: str, keypoints, save_dir: str = "./",
+                         threshold: float = 0.25, enlarge: float = 1.4,
+                         target_ar=None):
+    """Crop instance patches around keypoints and save them as PNGs
+    (``instance_<i>.png``, by the port's encoder; the JAX package writes
+    JPEGs through cv2) — the optional pre-processing workflow.
+
+    keypoints: [N_inst, K, 2 or 3].  Returns (paths, shifted_keypoints
+    [N_kept, K, *], boxes)."""
+    import os
+    from egonet_tpu_torch.data import png
+    from egonet_tpu_torch.data.image_store import decode_image
+    img = decode_image(img_path)
+    os.makedirs(save_dir, exist_ok=True)
+    new_paths, all_new_kpts, all_bbox = [], [], []
+    for i in range(len(keypoints)):
+        center, crop_size, new_kpts, vis_rate = kpts2cs(
+            keypoints[i], enlarge, target_ar=target_ar)
+        all_bbox.append(list(map(int, cs2bbox(center, crop_size))))
+        if vis_rate < threshold:
+            continue
+        all_new_kpts.append(new_kpts.reshape(1, *new_kpts.shape))
+        cropped = simple_crop(img, center, crop_size)
+        save_path = os.path.join(save_dir, f"instance_{i:d}.png")
+        new_paths.append(save_path)
+        with open(save_path, "wb") as f:
+            f.write(png.encode(cropped))
+    if not new_paths:
+        k = keypoints.shape[1] if hasattr(keypoints, "shape") else 0
+        return new_paths, np.zeros((0, k, 3)), all_bbox
+    return new_paths, np.concatenate(all_new_kpts, axis=0), all_bbox
+
+
 # ---------------------------------------------------------------------------
 # Device-side warp (torch)
 # ---------------------------------------------------------------------------
+
+def warp_affine(image: torch.Tensor, inv_mat: torch.Tensor,
+                out_hw) -> torch.Tensor:
+    """Bilinear affine warp of one image, on its device (a gather warp for
+    any affine, not only the axis-aligned crops of the separable warp).
+
+    image: [H, W, C] float tensor; inv_mat: [2, 3] destination pixel ->
+    source pixel (``get_affine_transform(..., inv=True)``); out_hw: (height,
+    width) of the patch.  Samples outside the image contribute zero
+    (cv2.warpAffine's BORDER_CONSTANT(0)).  Returns [out_h, out_w, C] in
+    the image's dtype."""
+    out_h, out_w = int(out_hw[0]), int(out_hw[1])
+    h, w = image.shape[0], image.shape[1]
+    dev = image.device
+    gy, gx = torch.meshgrid(
+        torch.arange(out_h, dtype=torch.float32, device=dev),
+        torch.arange(out_w, dtype=torch.float32, device=dev), indexing="ij")
+    m = torch.as_tensor(inv_mat, device=dev).to(torch.float32)
+    sx = m[0, 0] * gx + m[0, 1] * gy + m[0, 2]
+    sy = m[1, 0] * gx + m[1, 1] * gy + m[1, 2]
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    wx = (sx - x0)[..., None].to(image.dtype)
+    wy = (sy - y0)[..., None].to(image.dtype)
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+
+    def gather(yi, xi):
+        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        vals = image[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+        return vals * valid[..., None].to(image.dtype)
+
+    top = gather(y0i, x0i) * (1.0 - wx) + gather(y0i, x0i + 1) * wx
+    bot = gather(y0i + 1, x0i) * (1.0 - wx) + gather(y0i + 1, x0i + 1) * wx
+    return top * (1.0 - wy) + bot * wy
+
+
+def warp_instances(image: torch.Tensor, inv_mats: torch.Tensor, out_hw,
+                   mean: torch.Tensor | None = None,
+                   std: torch.Tensor | None = None) -> torch.Tensor:
+    """Warp (and normalize) a batch of instance crops from one image.
+
+    image: [H, W, 3] float in [0, 1]; inv_mats: [N, 2, 3].  Returns [N,
+    out_h, out_w, 3], normalized as (crop - mean) / std when mean and std
+    are given (ImageNet statistics, say)."""
+    crops = torch.stack([warp_affine(image, m, out_hw) for m in inv_mats])
+    if mean is not None:
+        crops = (crops - mean) / std
+    return crops
+
 
 def _interp_weights(start: torch.Tensor, step: torch.Tensor, n_out: int,
                     n_src: int, dtype=torch.float32,
@@ -273,17 +378,20 @@ def _separable_warp(srcs, ry: torch.Tensor, rx: torch.Tensor,
                     dtype) -> torch.Tensor:
     """out[n] = ry[n] @ srcs[n] @ rx[n]^T per channel.
 
-    srcs: per-instance [h, C, w] views (already in the compute dtype);
-    ry [N, out_h, h], rx [N, out_w, w].  Column pass first: its
-    [h, C, out_w] intermediate is smaller than a row-first one on wide
-    frames.  Returns [N, out_h, out_w, C]."""
+    srcs: per-instance [h, C, w] views (already in the compute dtype), or
+    one gathered [N, h, C, w] tensor; ry [N, out_h, h], rx [N, out_w, w].
+    Column pass first: its [h, C, out_w] intermediate is smaller than a
+    row-first one on wide frames.  Returns [N, out_h, out_w, C]."""
     n, out_h, h = ry.shape
     out_w = rx.shape[1]
     c = srcs[0].shape[1]
-    tmp = torch.empty((n, h, c, out_w), dtype=dtype, device=ry.device)
     rx_t = rx.to(dtype).transpose(1, 2)                       # [N, w, out_w]
-    for i, src in enumerate(srcs):
-        torch.matmul(src, rx_t[i], out=tmp[i])
+    if isinstance(srcs, torch.Tensor):
+        tmp = torch.bmm(srcs.reshape(n, h * c, srcs.shape[3]), rx_t)
+    else:
+        tmp = torch.empty((n, h, c, out_w), dtype=dtype, device=ry.device)
+        for i, src in enumerate(srcs):
+            torch.matmul(src, rx_t[i], out=tmp[i])
     out = torch.bmm(ry.to(dtype), tmp.view(n, h, c * out_w))
     return out.view(n, out_h, c, out_w).permute(0, 1, 3, 2)
 
@@ -294,9 +402,11 @@ def warp_affine_separable(images: torch.Tensor, inv_mats: torch.Tensor,
     """Axis-aligned affine warp as two matmuls per instance.
 
     images: [B, H, W, C] (uint8 or float, on the device); inv_mats:
-    [N, 2, 3] patch->source affines; img_idx: [N] host ints (the source
-    frame of each instance, a view — not a gather).  Hat weights are built
-    in bf16 as the JAX warp does; matmuls run in ``dtype`` with fp32
+    [N, 2, 3] patch->source affines; img_idx: the source frame of each
+    instance, either [N] host ints (each frame read as a view, no gather)
+    or an [N] int64 tensor on the device (frames gathered: what an exported
+    program, whose indices are an input, runs).  Hat weights are built in
+    bf16 as the JAX warp does; matmuls run in ``dtype`` with fp32
     accumulation.  Returns [N, out_h, out_w, C] in ``dtype``."""
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
     h, w = images.shape[1], images.shape[2]
@@ -306,6 +416,8 @@ def warp_affine_separable(images: torch.Tensor, inv_mats: torch.Tensor,
     rx = _interp_weights(mats[:, 0, 2], mats[:, 0, 0], out_w, w,
                          dtype=torch.bfloat16)
     src = images.to(dtype).permute(0, 1, 3, 2).contiguous()   # [B, H, C, W]
+    if isinstance(img_idx, torch.Tensor):
+        return _separable_warp(src.index_select(0, img_idx), ry, rx, dtype)
     idx = [int(i) for i in np.asarray(img_idx).reshape(-1)]
     return _separable_warp([src[i] for i in idx], ry, rx, dtype)
 

@@ -33,9 +33,14 @@ and passed to the kernel, which checks it against the layout it addresses.
 The kernel library instantiates exactly the (MT, NT, KS) variants of the
 plans it serves (:func:`library`), listed here and nowhere else.
 
-The wrapper takes the plain version only for a tensor on the CPU; for a
-CUDA tensor it launches the kernel or raises.  ``fused_basic_block.launches``
-counts kernel launches (and nothing else).
+The kernel is the custom op ``egonet::fused_basic_block`` (``torch.library``):
+its CUDA implementation checks the operands and launches, its CPU
+implementation is the plain version, and its fake implementation gives the
+output's shape to ``torch.export``, so an exported program holds one node
+per block.  The wrapper :func:`fused_basic_block` calls the op: the plain
+version only for a tensor on the CPU; for a CUDA tensor it launches the
+kernel or raises.  ``fused_basic_block.launches`` counts kernel launches
+(and nothing else).
 """
 
 from __future__ import annotations
@@ -108,9 +113,17 @@ def fold_conv_bn(weight: torch.Tensor, bn: torch.nn.BatchNorm2d):
     """Torch fold of a bias-free OIHW conv and its eval BN, in fp32 on the
     parameters' device.  Returns (w [C_out, 3, 3, C_in] bf16, b [C] fp32) in
     the kernel's layout."""
-    inv = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
+    return fold_conv_bn_tensors(weight, bn.weight, bn.bias, bn.running_mean,
+                                bn.running_var, bn.eps)
+
+
+@torch.no_grad()
+def fold_conv_bn_tensors(weight, gamma, beta, mean, var, eps: float):
+    """:func:`fold_conv_bn` on the batch norm's tensors (a ``state_dict``'s
+    ``weight``, ``bias``, ``running_mean`` and ``running_var``)."""
+    inv = gamma.float() / torch.sqrt(var.float() + eps)
     w = weight.float() * inv[:, None, None, None]
-    b = bn.bias.float() - bn.running_mean.float() * inv
+    b = beta.float() - mean.float() * inv
     return (w.permute(0, 2, 3, 1).contiguous().to(torch.bfloat16),
             b.contiguous())
 
@@ -276,7 +289,9 @@ def tile_for(c: int):
     return _TILES.get(c, (8, 8, 1, 48))
 
 
-def _check(x, w1, b1, w2, b2):
+def _check_shapes(x, w1, b1, w2, b2):
+    """The operand checks that need no data (the custom op's fake
+    implementation runs them on tensors without storage)."""
     if x.dtype != torch.bfloat16 or x.dim() != 4 or not x.is_contiguous():
         raise ValueError("x must be a contiguous NHWC bf16 tensor, got "
                          f"{x.dtype} {tuple(x.shape)}")
@@ -293,30 +308,61 @@ def _check(x, w1, b1, w2, b2):
     for t in (w1, b1, w2, b2):
         if t.device != x.device:
             raise ValueError("all operands must be on x's device")
+
+
+def _check(x, w1, b1, w2, b2):
+    _check_shapes(x, w1, b1, w2, b2)
     if any(t.data_ptr() % 32 for t in (x, w1, b1, w2, b2)):
         raise ValueError("operands must be 32-byte aligned")
+
+
+def _default_launcher(c: int):
+    """:func:`_launcher` of width ``c``'s default plan in the default
+    library, built once: the lock keeps two threads (a server's dispatch
+    thread and its caller) from building or caching it twice."""
+    with _build.LOCK:
+        launcher = _LAUNCHERS.get(c)
+        if launcher is None:
+            launcher = _LAUNCHERS[c] = _launcher(plan_for(c), library())
+    return launcher
 
 
 def fused_basic_block(x, w1, b1, w2, b2) -> torch.Tensor:
     """y = relu(conv(relu(conv(x, w1) + b1), w2) + b2 + x), NHWC bf16.
 
     x [N, H, W, C] bf16 contiguous; w1, w2 [C, 3, 3, C] bf16 (folded,
-    tap-major); b1, b2 [C] fp32.  A CPU tensor goes through
+    tap-major); b1, b2 [C] fp32.  Calls the custom op
+    ``egonet::fused_basic_block``: a CPU tensor goes through
     :func:`fused_basic_block_reference`; a CUDA tensor launches the kernel
-    with the plan of :func:`tile_for` on the current stream or raises."""
-    if x.device.type == "cpu":
-        return fused_basic_block_reference(x, w1, b1, w2, b2)
+    with the plan of :func:`tile_for` on the calling thread's current
+    stream or raises.  Under ``torch.export`` the op is one graph node."""
+    return torch.ops.egonet.fused_basic_block(x, w1, b1, w2, b2)
+
+
+@torch.library.custom_op("egonet::fused_basic_block", mutates_args=(),
+                         device_types="cuda")
+def _fused_basic_block_cuda(x: torch.Tensor, w1: torch.Tensor,
+                            b1: torch.Tensor, w2: torch.Tensor,
+                            b2: torch.Tensor) -> torch.Tensor:
     _check(x, w1, b1, w2, b2)
-    c = x.shape[3]
-    launcher = _LAUNCHERS.get(c)
-    if launcher is None:
-        launcher = _LAUNCHERS[c] = _launcher(plan_for(c), library())
-    return _launch(x, w1, b1, w2, b2, *launcher)
+    return _launch(x, w1, b1, w2, b2, *_default_launcher(x.shape[3]))
+
+
+@_fused_basic_block_cuda.register_kernel("cpu")
+def _fused_basic_block_cpu(x, w1, b1, w2, b2):
+    return fused_basic_block_reference(x, w1, b1, w2, b2)
+
+
+@_fused_basic_block_cuda.register_fake
+def _fused_basic_block_fake(x, w1, b1, w2, b2):
+    _check_shapes(x, w1, b1, w2, b2)
+    return torch.empty_like(x)
 
 
 def _launch(x, w1, b1, w2, b2, plan, struct, fn) -> torch.Tensor:
     """Launch the kernel on checked CUDA operands with ``plan`` (its
-    ``struct``) through ``fn``, a library's entry point."""
+    ``struct``) through ``fn``, a library's entry point, on the calling
+    thread's current stream."""
     n, h, w, c = x.shape
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -28,8 +28,11 @@ variants of the plans it serves (:func:`library`).
 
 The plain version is ``fused_block.fused_basic_block_reference``, which
 computes the identical function; it is re-exported here as
-:func:`fused_basic_block_reference`.  The wrapper takes it only for a tensor
-on the CPU; for a CUDA tensor it launches the kernel or raises.
+:func:`fused_basic_block_reference`.  The default plan's kernel is the
+custom op ``egonet::fused_basic_block_stencil`` (CUDA: the launch; CPU: the
+plain version; a fake implementation for ``torch.export``), as for the
+tiled kernel.  The wrapper takes the plain version only for a tensor on
+the CPU; for a CUDA tensor it launches the kernel or raises.
 ``fused_basic_block_stencil.launches`` counts kernel launches (and nothing
 else).
 """
@@ -46,7 +49,7 @@ import torch
 
 from egonet_tpu_torch.ops import _build
 from egonet_tpu_torch.ops.fused_block import (_SMEM_LIMIT, _align128, _cdiv,
-                                              _check,
+                                              _check, _check_shapes,
                                               fused_basic_block_reference,
                                               pack_block_weights)
 
@@ -329,17 +332,24 @@ def _launcher(plan: StencilPlan, lib):
 
 def _default_launcher(plan: StencilPlan):
     """:func:`_launcher` of ``plan`` in the default library, cached per
-    plan.  Raises ValueError, before touching the card, if the default
-    library holds no kernel variant for the plan."""
-    launcher = _LAUNCHERS.get(plan)
-    if launcher is None:
-        if _variant(plan) not in {_variant(p) for p in _default_plans()}:
-            raise ValueError(
-                f"the stencil library holds no kernel for tile {plan.tile} at "
-                f"C={plan.c}: its (MT1, MT2, NT, KC, STREAM) = "
-                f"{_variant(plan)} is no default plan's")
-        launcher = _LAUNCHERS[plan] = _launcher(plan, library())
+    plan (under ``_build.LOCK``: the first call may come from any thread).
+    Raises ValueError, before touching the card, if the default library
+    holds no kernel variant for the plan."""
+    with _build.LOCK:
+        launcher = _LAUNCHERS.get(plan)
+        if launcher is None:
+            if _variant(plan) not in {_variant(p) for p in _default_plans()}:
+                raise ValueError(
+                    f"the stencil library holds no kernel for tile "
+                    f"{plan.tile} at C={plan.c}: its (MT1, MT2, NT, KC, "
+                    f"STREAM) = {_variant(plan)} is no default plan's")
+            launcher = _LAUNCHERS[plan] = _launcher(plan, library())
     return launcher
+
+
+def _check_width(c: int):
+    if c > _MAX_C:
+        raise ValueError(f"the stencil kernel takes C <= {_MAX_C}, got {c}")
 
 
 def fused_basic_block_stencil(x, w1, b1, w2, b2, tile=None) -> torch.Tensor:
@@ -347,19 +357,42 @@ def fused_basic_block_stencil(x, w1, b1, w2, b2, tile=None) -> torch.Tensor:
     row streaming.
 
     x [N, H, W, C] bf16 contiguous, C <= 384; w1, w2 [C, 3, 3, C] bf16
-    (folded, tap-major); b1, b2 [C] fp32.  ``tile`` overrides
-    :func:`tile_for` (a full tile, or (TW, NB) with the rest of the
-    default) with a plan whose kernel variant the default library holds;
-    another raises.  A CPU tensor goes through
-    :func:`fused_basic_block_reference`; a CUDA tensor launches the kernel
-    on the current stream or raises."""
-    if x.device.type == "cpu":
-        return fused_basic_block_reference(x, w1, b1, w2, b2)
+    (folded, tap-major); b1, b2 [C] fp32.  With the default plan it calls
+    the custom op ``egonet::fused_basic_block_stencil``: a CPU tensor goes
+    through :func:`fused_basic_block_reference`; a CUDA tensor launches
+    the kernel on the calling thread's current stream or raises.
+    ``tile`` overrides :func:`tile_for` (a full tile, or (TW, NB) with the
+    rest of the default) with a plan whose kernel variant the default
+    library holds, launched directly (not through the op); another
+    raises."""
+    if tile is None or x.device.type == "cpu":
+        return torch.ops.egonet.fused_basic_block_stencil(x, w1, b1, w2, b2)
     _check(x, w1, b1, w2, b2)
-    c = x.shape[3]
-    if c > _MAX_C:
-        raise ValueError(f"the stencil kernel takes C <= {_MAX_C}, got {c}")
-    return _launch(x, w1, b1, w2, b2, *_default_launcher(plan_for(c, tile)))
+    _check_width(x.shape[3])
+    return _launch(x, w1, b1, w2, b2,
+                   *_default_launcher(plan_for(x.shape[3], tile)))
+
+
+@torch.library.custom_op("egonet::fused_basic_block_stencil",
+                         mutates_args=(), device_types="cuda")
+def _stencil_cuda(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                  w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    _check(x, w1, b1, w2, b2)
+    _check_width(x.shape[3])
+    return _launch(x, w1, b1, w2, b2,
+                   *_default_launcher(plan_for(x.shape[3])))
+
+
+@_stencil_cuda.register_kernel("cpu")
+def _stencil_cpu(x, w1, b1, w2, b2):
+    return fused_basic_block_reference(x, w1, b1, w2, b2)
+
+
+@_stencil_cuda.register_fake
+def _stencil_fake(x, w1, b1, w2, b2):
+    _check_shapes(x, w1, b1, w2, b2)
+    _check_width(x.shape[3])
+    return torch.empty_like(x)
 
 
 def _launch(x, w1, b1, w2, b2, plan, struct, fn) -> torch.Tensor:

@@ -7,6 +7,9 @@ Python one) and draw its PR curves (port of ``tools/inference.py``).
     python -m egonet_tpu_torch.tools.inference --cfg <yaml> \\
         [--visualize false] [--batch_to_show N]
 
+``--visualize true`` writes ``<stem>_2d.png`` / ``<stem>_3d.png`` beside
+each image's txt (needs matplotlib).
+
 On a host without PyYAML, call ``main(cfgs=<dict>)`` with a config dict
 (``config.demo_config()`` plus the paths).  The model runs on CUDA unless
 the config says ``device: cpu``.
@@ -155,8 +158,6 @@ def main(argv=None, cfgs=None) -> dict:
         cfgs = copy.deepcopy(cfgs)
         cfgs.setdefault("visualize", False)
         cfgs.setdefault("batch_to_show", 1_000_000)
-    if cfgs.get("visualize"):
-        raise NotImplementedError("--visualize is not ported yet (queued)")
     logger, final_output_dir = get_logger(cfgs)
     if cfgs.get("config_path"):
         shutil.copyfile(cfgs["config_path"],

@@ -163,10 +163,16 @@ def test_one_frame_matches_jax_eager(world):
 
 
 def test_visualize_and_cpu_fallback_raise(world, monkeypatch):
+    """--visualize runs (tests/test_torch_refine_vis.py checks its PNGs);
+    where matplotlib is missing it raises an ImportError naming it.  A
+    config without a device raises without CUDA."""
+    import sys
     from egonet_tpu_torch.tools import inference
-    cfg = dict(world["cfg"], visualize=True)
-    with pytest.raises(NotImplementedError):
-        inference.main(cfgs=cfg)
+    cfg = dict(world["cfg"], visualize=True, batch_to_show=1)
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "matplotlib", None)
+        with pytest.raises(ImportError, match="matplotlib"):
+            inference.main(cfgs=cfg)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = dict(world["cfg"])
     cfg.pop("device")

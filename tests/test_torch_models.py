@@ -159,11 +159,14 @@ def test_lifter_matches(rng, out_size):
                                       got.numpy())
 
 
-def test_queued_options_raise():
-    """What the port still refuses: an unknown head_type, an unknown
-    heatmapModel.name and the facade's post_process(visualize=True) (the
-    visualisation is queued); every model, head and option of the JAX
-    factory builds (tests/test_torch_families.py)."""
+def test_queued_options_raise(tmp_path, monkeypatch):
+    """What the port refuses: an unknown head_type and an unknown
+    heatmapModel.name (every model, head and option of the JAX factory
+    builds, tests/test_torch_families.py); and the facade's
+    post_process(visualize=True) / (refine=True) where matplotlib / cv2
+    is missing, with an ImportError naming it."""
+    import sys
+    from egonet_tpu_torch.data import png
     from egonet_tpu_torch.models.egonet import EgoNet
     from egonet_tpu_torch.models.factory import build_heatmap_model
     c = fixtures.shrink_hrnet(demo_config())
@@ -175,5 +178,15 @@ def test_queued_options_raise():
     with pytest.raises(NotImplementedError):
         build_heatmap_model(c)
     net = EgoNet(fixtures.shrink_hrnet(demo_config()), device="cpu")
-    with pytest.raises(NotImplementedError):
-        net.post_process({}, visualize=True)
+    frame = str(tmp_path / "000000.png")
+    with open(frame, "wb") as f:
+        f.write(png.encode(np.zeros((8, 8, 3), np.uint8)))
+    rec = {"kpts_3d_pred": np.zeros((1, 32, 3)), "K": np.eye(3),
+           "kpts_2d_pred": [np.zeros((1, 66))], "boxes": np.zeros((1, 4))}
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError, match="matplotlib"):
+        net.post_process({frame: dict(rec)}, visualize=True,
+                         vis_dir=str(tmp_path))
+    with pytest.raises(ImportError, match="cv2"):
+        net.post_process({frame: dict(rec)}, refine=True)

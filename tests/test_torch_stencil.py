@@ -157,14 +157,15 @@ def test_wrapper_takes_plain_version_for_cpu_tensor(monkeypatch):
 
     def plain(*args):
         calls.append(args)
-        return "plain"
+        return torch.full_like(args[0], 7.0)
 
     monkeypatch.setattr(st, "fused_basic_block_reference", plain)
     before = st.fused_basic_block_stencil.launches
     x = torch.zeros(1, 4, 4, 16, dtype=torch.bfloat16)
     w = torch.zeros(16, 3, 3, 16, dtype=torch.bfloat16)
     b = torch.zeros(16)
-    assert st.fused_basic_block_stencil(x, w, b, w, b) == "plain"
+    # the custom op's CPU implementation is the plain version
+    assert bool((st.fused_basic_block_stencil(x, w, b, w, b) == 7.0).all())
     assert len(calls) == 1
     assert st.fused_basic_block_stencil.launches == before
 
