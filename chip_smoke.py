@@ -116,6 +116,29 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    with it; artifact bytes, export and load seconds, ms per call of both
    programs (CUDA events, 10 calls after 3), and the custom op's host
    microseconds per call beside a direct launch's.
+9d. Resume phase (``resume`` line, on the training directory): the IGR
+   CLI on the native config in bf16 with ``exact_resume`` (batches of 4
+   frames, 6 steps an epoch), 2 epochs and then the same command to 3
+   (resumed from the full-state checkpoint), against 3 epochs straight,
+   each run as a user runs it: ``exact_resume`` puts the CLI under
+   ``torch.use_deterministic_algorithms`` with ``CUBLAS_WORKSPACE_CONFIG``
+   set (``device.deterministic``) for that run only: the two final full
+   states (parameters, BN buffers, Adam moments, step) must be bit-equal
+   (the largest gap printed if not); each asynchronous save's host copy,
+   write and how much of it the next epoch hid; and one W48 full-state
+   checkpoint (fp32, Adam): bytes, save and restore seconds.
+9e. Mesh phase (``mesh`` line): the W48 slice (bf16) through
+   ``EgoNet(mesh=DataMesh([cuda:0, cuda:0]))``: two shards of 16 at bucket
+   32 on the one card, 104 tiled launches per shard by the counter, then
+   104 stencil launches per shard with the stencil selected, each held
+   against the single-device facade on the same batch (median |d ry| and
+   |d alpha| at most 0.05 deg, max 0.5); then 32 requests served through a
+   PoseServer over the mesh (104 tiled launches per shard of every
+   micro-batch), held against the single-device facade.
+9f. DP phase (``dp`` line): ``tools/dryrun_multigpu`` with 2 ranks on
+   cuda:0 over gloo (nccl refuses two ranks on one card), every leg (the
+   W48 legs at full width), then one rank over nccl (the legs that hold
+   a group against one process skipped as such).
 10. Prints one JSON line per kernel shape and phase, both kernels' earlier
    times per forward (past figures from PERF.md, labelled so), the
    {"kernels": [...]} line (every number in it measured or, for
@@ -123,8 +146,9 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    row under ``shapes`` and the W32 forward's sums under
    ``w32_forward``, the serve phase's launches and micro-batches under
    ``serve_launches`` / ``served_batches``, the exported programs'
-   launches per call), the run's seconds, the card line, and last
-   {"ok": true, "device": {...}}.
+   launches per call, the mesh phase's launches under ``mesh_launches``),
+   each phase's seconds (``phase_s``), the run's seconds, the card line,
+   and last {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
 Any failure raises (non-zero exit).
@@ -1929,6 +1953,267 @@ def _op_overhead(torch, fb, n=500):
     return out
 
 
+# ---------------------------------------------------------------------------
+# data parallelism and exact resume: the mesh, dp and resume phases
+# ---------------------------------------------------------------------------
+
+# the mesh phase: the W48 slice sharded over two shards of the one card
+MESH_SHARDS = 2
+MESH_SERVE_REQUESTS, MESH_SERVE_SETTLE = 32, 2
+# the dp phase: the dry run's ranks (gloo, all on cuda:0) and budget; the
+# one-rank nccl run skips the legs that compare ranks with one process
+DP_RANKS, DP_BUDGET_S = 2, 900.0
+# the resume phase: the native IGR CLI, epochs straight and the cut
+RESUME_EPOCHS, RESUME_CUT, RESUME_BATCH = 3, 2, 4   # 6 steps an epoch
+
+
+def _mesh_batch(torch, fb, st, model, annot):
+    """One sharded batch, both kernels' launch counts set to 0 just before
+    and read just after: (records, launches, rows of the padded batch)."""
+    fb.fused_basic_block.launches = 0
+    st.fused_basic_block_stencil.launches = 0
+    pending = model.dispatch_annot_dict(annot)
+    records = model.finalize(pending)
+    launches = {"tiled": fb.fused_basic_block.launches,
+                "stencil": st.fused_basic_block_stencil.launches}
+    return records, launches, int(pending[0].shape[0])
+
+
+def _gap_row(np, got, want):
+    """|d ry| and |d alpha| (deg) of two record sets, held to the serve
+    bars."""
+    d_ry = _d_deg(np, _ry(np, got), _ry(np, want))
+    d_al = _d_deg(np, np.concatenate([got[p]["alphas"] for p in got]),
+                  np.concatenate([want[p]["alphas"] for p in got]))
+    row = {"median_d_ry_deg": float(np.median(d_ry)),
+           "max_d_ry_deg": float(d_ry.max()),
+           "median_d_alpha_deg": float(np.median(d_al)),
+           "max_d_alpha_deg": float(d_al.max())}
+    for key in ("ry", "alpha"):
+        assert row[f"median_d_{key}_deg"] <= SERVE_MEDIAN_DEG, row
+        assert row[f"max_d_{key}_deg"] <= SERVE_MAX_DEG, row
+    return row
+
+
+def mesh_phase(torch, np, fb, st, annot, card):
+    """The W48 slice (bf16, 4 frames x 6 boxes) through
+    ``EgoNet(mesh=DataMesh([cuda:0, cuda:0]))``: two shards of 16 at
+    bucket 32 on the one card, 104 tiled launches per shard by the counter
+    (then 104 stencil launches per shard with the stencil selected), each
+    held against the single-device facade on the same batch (the serve
+    bars); then a served pass through a PoseServer over the same mesh,
+    104 tiled launches per shard of every micro-batch, every response held
+    against the single-device facade."""
+    from egonet_tpu_torch.config import demo_config
+    from egonet_tpu_torch.models.egonet import EgoNet
+    from egonet_tpu_torch.parallel import mesh
+    from egonet_tpu_torch.precision import _plausible_ls_stats
+    from egonet_tpu_torch.tools import bench_serve
+    t_phase = time.perf_counter()
+    single = _slice_model(torch, demo_config())
+    data_mesh = mesh.DataMesh(["cuda:0"] * MESH_SHARDS)
+    sharded = EgoNet(demo_config(), mesh=data_mesh)
+    sharded.load_state(ls_stats=_plausible_ls_stats())
+    row = {"mesh": [str(d) for d in data_mesh], "shards": MESH_SHARDS,
+           "note": "one card: the shards run one after the other on "
+                   "cuda:0", "card": card}
+    for path, flag in (("tiled", "0"), ("stencil", "1")):
+        single.prepare_inference(stencil=flag)
+        sharded.prepare_inference(stencil=flag)
+        want = single(annot)
+        records, launches, rows = _mesh_batch(torch, fb, st, sharded, annot)
+        other = "stencil" if path == "tiled" else "tiled"
+        assert rows == 32, rows
+        assert launches == {path: 104 * MESH_SHARDS, other: 0}, launches
+        n_inst = N_FRAMES * N_BOXES
+        row[path] = {"bucket": rows, "launches": launches[path],
+                     "launches_per_shard": launches[path] // MESH_SHARDS,
+                     "vs_single": _gap_row(np, records, want),
+                     "crops_per_s": n_inst / _steady_s(torch, sharded,
+                                                       annot),
+                     "single_crops_per_s": n_inst / _steady_s(torch, single,
+                                                              annot)}
+    single.prepare_inference(stencil="0")
+    sharded.prepare_inference(stencil="0")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = bench_serve.make_frames(tmp, SERVE_FRAMES)
+        payloads = bench_serve.make_payloads(paths, MESH_SERVE_REQUESTS,
+                                             SERVE_BOXES)
+        line, bodies, launches, batches, _ = _serve_pass(
+            torch, fb, st, sharded, payloads, settle=MESH_SERVE_SETTLE,
+            n_single=0)
+        assert launches == {"tiled": 104 * MESH_SHARDS * batches,
+                            "stencil": 0}, (launches, batches)
+        row["serve"] = {"requests": len(payloads), "req_per_s": line["value"],
+                        "p50_ms": line["p50_ms"], "max_ms": line["max_ms"],
+                        "settle_passes": MESH_SERVE_SETTLE,
+                        "timed_batches": line["batches"],
+                        "batches": batches, "launches": launches["tiled"],
+                        "vs_single": _served_vs_offline(np, single, payloads,
+                                                        bodies)}
+    del single, sharded
+    torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"mesh": row}), flush=True)
+    return row
+
+
+def _dryrun(tmp, args, timeout_s):
+    """``tools/dryrun_multigpu`` (its ranks spawned here, their leg lines on
+    this output); returns rank 0's summary."""
+    from egonet_tpu_torch.tools import dryrun_multigpu
+    out = os.path.join(tmp, "dryrun.json")
+    dryrun_multigpu.main(args + ["--out", out, "--timeout-s", str(timeout_s)])
+    with open(out) as f:
+        return json.load(f)
+
+
+def dp_phase(card):
+    """``tools/dryrun_multigpu`` with DP_RANKS ranks over gloo, all on
+    cuda:0 (nccl refuses two ranks on one card; gloo reduces the CUDA
+    tensors through the host), every leg admitted (the W48 legs at full
+    width); then one rank over nccl, to prove that init path."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        gloo = _dryrun(tmp, ["--nproc", str(DP_RANKS), "--backend", "gloo",
+                             "--device", "cuda:0", "--budget-s",
+                             str(DP_BUDGET_S)], 900)
+        assert gloo["skipped"] == {} and len(gloo["legs"]) == 7, gloo
+        nccl = _dryrun(tmp, ["--nproc", "1", "--backend", "nccl",
+                             "--device", "cuda:0"], 300)
+        assert nccl["backend"] == "nccl" and "sharded_train" in nccl["legs"]
+        assert set(nccl["skipped"].values()) == {"one rank"}, nccl
+    row = {"gloo": gloo, "nccl": nccl, "card": card,
+           "note": f"{DP_RANKS} ranks on the one card (cuda:0)",
+           "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"dp": row}), flush=True)
+    return row
+
+
+def _ckpt_tensors(torch, path):
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    out = {f"model.{k}": v for k, v in payload["model"].items()}
+    for i, st in payload["optimizer"]["state"].items():
+        for k, v in st.items():
+            if torch.is_tensor(v):
+                out[f"opt.{i}.{k}"] = v
+    return out, payload["step"]
+
+
+def _w48_checkpoint(torch, tmp):
+    """Save (asynchronously) and restore one full-state checkpoint of the
+    shipped W48 IGR trainer in fp32 after one optimizer step (Adam's
+    moments exist): seconds and bytes."""
+    from egonet_tpu_torch.config import train_igrs_config
+    from egonet_tpu_torch.io.train_ckpt import TrainCheckpointManager
+    from egonet_tpu_torch.train.igrs import IGRTrainer
+    cfgs = train_igrs_config()
+    cfgs["heatmapModel"]["pretrained"] = ""
+    trainer = IGRTrainer(cfgs, device="cuda")
+    state = trainer.init_state(0)
+    for p in state.model.parameters():
+        p.grad = torch.zeros_like(p)
+    state.optimizer.step()
+    state.step = 1
+    n_params = sum(p.numel() for p in state.model.parameters())
+    with TrainCheckpointManager(os.path.join(tmp, "w48")) as mgr:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(1, state)
+        save_returned_s = time.perf_counter() - t0
+        mgr.wait_until_finished()
+        fresh = IGRTrainer(cfgs, device="cuda")
+        template = fresh.init_state(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.restore(template, step=1)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        rec = dict(mgr.saves[0])
+    got = dict(template.model.state_dict())
+    assert all(torch.equal(v, got[k])
+               for k, v in state.model.state_dict().items())
+    del trainer, state, fresh, template
+    torch.cuda.empty_cache()
+    return {"params": n_params, "bytes": rec["bytes"],
+            "save_returned_s": save_returned_s, "host_copy_s": rec["copy_s"],
+            "write_s": rec["write_s"], "restore_s": restore_s}
+
+
+def resume_phase(torch, np, root, out, card):
+    """``tools/train_igrs.main`` on the native config (bf16) over the train
+    split, with ``exact_resume``: RESUME_CUT epochs, then the same command
+    to RESUME_EPOCHS (resumed from the full-state checkpoint), against
+    RESUME_EPOCHS straight, each as a user runs it (``exact_resume``
+    switches the CLI to deterministic algorithms itself; the phase checks
+    that the mode is off again after each run).  The two final
+    full states (parameters, BN buffers, Adam moments, step) must be
+    bit-equal; prints the largest gap if not.  Then one W48 full-state
+    checkpoint's save and restore seconds and bytes, and how much of each
+    asynchronous save the next epoch hid."""
+    import warnings
+    from egonet_tpu_torch.config import tpu_native_config
+    from egonet_tpu_torch.tools import train_igrs
+    t_phase = time.perf_counter()
+
+    def run(name, epochs):
+        cfgs = tpu_native_config()
+        cfgs["dataset"]["root"] = root
+        cfgs["dirs"] = {"output": os.path.join(out, name)}
+        cfgs["bf16"] = True
+        cfgs["heatmapModel"]["pretrained"] = ""
+        cfgs["training_settings"].update(total_epochs=epochs,
+                                         exact_resume=True,
+                                         eval_during=False,
+                                         batch_size=RESUME_BATCH)
+        t0 = time.perf_counter()
+        summary = train_igrs.main(cfgs=cfgs)
+        summary["seconds"] = time.perf_counter() - t0
+        assert not torch.are_deterministic_algorithms_enabled()
+        return summary
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        first = run("cut", RESUME_CUT)
+        resumed = run("cut", RESUME_EPOCHS)
+        full = run("full", RESUME_EPOCHS)
+    assert [h["epoch"] for h in resumed["history"]] == list(
+        range(RESUME_CUT, RESUME_EPOCHS)), resumed["history"]
+    a, step_a = _ckpt_tensors(torch, os.path.join(
+        full["ckpt_dir"], "orbax", str(RESUME_EPOCHS)))
+    b, step_b = _ckpt_tensors(torch, os.path.join(
+        resumed["ckpt_dir"], "orbax", str(RESUME_EPOCHS)))
+    assert set(a) == set(b), sorted(set(a) ^ set(b))[:5]
+    gaps = {k: float((a[k].double() - b[k].double()).abs().max())
+            for k in a if not torch.equal(a[k], b[k])}
+    row = {"config": "KITTI_tpu_native.yml, bf16",
+           "epochs": RESUME_EPOCHS, "cut": RESUME_CUT,
+           "steps": step_a, "tensors": len(a),
+           "bit_equal": not gaps and step_a == step_b,
+           "unequal_tensors": len(gaps),
+           "max_gap": max(gaps.values()) if gaps else 0.0,
+           "nondeterministic_ops": sorted({
+               str(w.message).split(".")[0][:100] for w in caught
+               if "deterministic" in str(w.message)}),
+           "run_s": {"cut": first["seconds"], "resumed": resumed["seconds"],
+                     "full": full["seconds"]},
+           "saves": full["checkpoints"], "card": card}
+    # the part of each asynchronous write the next epoch hid: the write's
+    # seconds less those the next save (or the drain) waited for it
+    row["overlap"] = [
+        {"step": s["step"], "write_s": s["write_s"],
+         "waited_s": s.get("wait_s", 0.0),
+         "hidden_share": 1.0 - s.get("wait_s", 0.0) / s["write_s"]}
+        for s in full["checkpoints"]]
+    with tempfile.TemporaryDirectory() as tmp:
+        row["w48_checkpoint"] = _w48_checkpoint(torch, tmp)
+    row["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"resume": row}), flush=True)
+    assert row["bit_equal"], {k: gaps[k] for k in sorted(
+        gaps, key=gaps.get)[-5:]}
+    return row
+
+
 def _ped_entry(rows, launches):
     """The W32 forward's share of a kernel's entry: per-shape rows summed
     over one W32 pedestrian forward at 32 crops."""
@@ -1991,44 +2276,67 @@ def main() -> int:
               + "; ".join(_ptxas_summary(info["log"])), flush=True)
 
     print(json.dumps({"sass": sass_report(_build, fb, st)}), flush=True)
-    rows = kernel_phase(torch, fb, sweep, sweep_lib)
-    srows = stencil_kernel_phase(torch, fb, st, ssweep, ssweep_lib)
-    ped_rows = kernel_ped_phase(torch, fb, st, ped_tiled, ped_tiled_lib,
-                                ped_stencil, ped_stencil_lib)
-    result, model, annot, ry, ry_u = slice_phase(torch, np, fb, st)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        """Run one phase and keep its seconds (printed with the others)."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        print(json.dumps({"phase_s": {name: phase_s[name]}}), flush=True)
+        return out
+
+    rows = timed("kernel", kernel_phase, torch, fb, sweep, sweep_lib)
+    srows = timed("stencil_kernel", stencil_kernel_phase, torch, fb, st,
+                  ssweep, ssweep_lib)
+    ped_rows = timed("kernel_ped", kernel_ped_phase, torch, fb, st,
+                     ped_tiled, ped_tiled_lib, ped_stencil, ped_stencil_lib)
+    result, model, annot, ry, ry_u = timed("slice", slice_phase, torch, np,
+                                           fb, st)
     print(json.dumps({"slice": result}), flush=True)
-    sresult = stencil_slice_phase(torch, np, fb, st, model, annot, ry, ry_u)
+    sresult = timed("stencil_slice", stencil_slice_phase, torch, np, fb, st,
+                    model, annot, ry, ry_u)
     sresult["tiled_crops_per_s"] = result["crops_per_s"]
     print(json.dumps({"stencil_slice": sresult}), flush=True)
-    profile_phase(torch, fb, st, model, annot)
+    timed("profile", profile_phase, torch, fb, st, model, annot)
     del model
     torch.cuda.empty_cache()
-    fixture_phase(torch, np, fb, st, here)
+    timed("fixture", fixture_phase, torch, np, fb, st, here)
     torch.cuda.empty_cache()
-    native_phase(torch, np, fb, st, here, annot)
+    timed("native", native_phase, torch, np, fb, st, here, annot)
     with tempfile.TemporaryDirectory() as tmp:
-        cli, root, pred_dir = cli_phase(np, fb, st, tmp)
+        cli, root, pred_dir = timed("cli", cli_phase, np, fb, st, tmp)
         print(json.dumps({"cli": cli}), flush=True)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         _write_train_split(np, root)
         out = os.path.join(tmp, "train_out")
-        ckpt_dir = train_lifter_phase(torch, np, root, out, card)
-        train_igrs_phase(torch, np, here, root, pred_dir, ckpt_dir, out,
-                         card)
-        train_native_phase(torch, np, root, card)
-        ped = train_ped_phase(torch, np, fb, st, root, annot, card)
-        options_phase(torch, np, fb, st, annot, ry, root, card)
+        ckpt_dir = timed("train_lifter", train_lifter_phase, torch, np, root,
+                         out, card)
+        timed("train_igrs", train_igrs_phase, torch, np, here, root,
+              pred_dir, ckpt_dir, out, card)
+        timed("train_native", train_native_phase, torch, np, root, card)
+        ped = timed("train_ped", train_ped_phase, torch, np, fb, st, root,
+                    annot, card)
+        timed("options", options_phase, torch, np, fb, st, annot, ry, root,
+              card)
         print(json.dumps({"training_phases_s": time.perf_counter() - t0,
                           "card": card}), flush=True)
+        torch.cuda.empty_cache()
+        timed("resume", resume_phase, torch, np, root,
+              os.path.join(tmp, "resume_out"), card)
     torch.cuda.empty_cache()
-    bench_phase()
+    timed("bench", bench_phase)
     torch.cuda.empty_cache()
-    drift_phase()
+    timed("drift", drift_phase)
     torch.cuda.empty_cache()
-    serve = serve_phase(torch, np, fb, st, card)
+    serve = timed("serve", serve_phase, torch, np, fb, st, card)
     torch.cuda.empty_cache()
-    exported = export_phase(torch, np, fb, st, annot, card)
+    exported = timed("export", export_phase, torch, np, fb, st, annot, card)
+    torch.cuda.empty_cache()
+    meshed = timed("mesh", mesh_phase, torch, np, fb, st, annot, card)
+    torch.cuda.empty_cache()
+    timed("dp", dp_phase, card)
 
     assert sum(PER_FORWARD.values()) == result["launches_per_forward"]
     print(json.dumps({"earlier": EARLIER}), flush=True)
@@ -2059,8 +2367,15 @@ def main() -> int:
             entry["export_launches_per_call"] = {
                 b: r["launches_per_call"]
                 for b, r in exported["buckets"].items()}
+        # launches of the mesh phase's sharded W48 batch (two shards of 16
+        # on cuda:0, 104 each) and of its served micro-batches (tiled)
+        entry["mesh_launches"] = meshed[path]["launches"]
+        entry["mesh_launches_per_shard"] = meshed[path]["launches_per_shard"]
+        if path == "tiled":
+            entry["mesh_serve_launches"] = meshed["serve"]["launches"]
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"phase_s": phase_s}), flush=True)
     print(json.dumps({"run_s": time.perf_counter() - t_run}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

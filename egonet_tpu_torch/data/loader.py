@@ -1,7 +1,7 @@
 """Host-side input pipeline (port of ``egonet_tpu/data/loader.py``):
 fixed-shape padded training batches for the IGR model
 (:class:`IGRBatchLoader`) and the lifter (:class:`ArrayBatchLoader`), the
-per-process record shard, box jitter, and the byte-capped LRU of decoded
+per-node record shard, box jitter, and the byte-capped LRU of decoded
 images.
 
 The host only decodes frames and reckons 2x3 crop matrices; the crop warp
@@ -25,6 +25,7 @@ import numpy as np
 
 from egonet_tpu_torch.constants import MAX_INS_CNT
 from egonet_tpu_torch.ops import affine
+from egonet_tpu_torch.parallel import mesh
 
 
 class LRUImageCache:
@@ -68,27 +69,21 @@ class LRUImageCache:
         return self._bytes
 
 
-def _process_group():
-    """(index, count) of this process in torch.distributed's default group,
-    (0, 1) when none is initialized."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
 def host_shard(records, index: int | None = None, count: int | None = None,
                epoch: int = 0):
-    """Disjoint per-process record shard for data parallelism: each
-    process reads its strided slice, wrap-padded to the longest shard's
-    length (every process must run the same number of steps).  ``index``
-    / ``count`` default to the torch.distributed rank / world size (the
-    identity in a single process).  ``epoch`` rotates which records fill
-    the padding slots; with more processes than records every process gets
-    one (epoch-rotated) record."""
+    """Disjoint per-node record shard for data parallelism: each node
+    reads its strided slice, wrap-padded to the longest shard's length
+    (every node must run the same number of steps).  ``index`` / ``count``
+    default to this process's node and the number of nodes
+    (``parallel/mesh.node``: rank // LOCAL_WORLD_SIZE and WORLD_SIZE //
+    LOCAL_WORLD_SIZE under torchrun, (0, 1) without a process group): the
+    ranks of one node read the same records and split each batch's rows
+    between them, as the JAX package's hosts do over their chips.
+    ``epoch`` rotates which records fill the padding slots; with more
+    nodes than records every node gets one (epoch-rotated) record."""
     records = list(records)
     if count is None or index is None:
-        index, count = _process_group()
+        index, count = mesh.node()
     if count <= 1 or not records:
         return records
     if not 0 <= index < count:

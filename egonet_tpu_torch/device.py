@@ -7,6 +7,9 @@ caller asks for it by name (the tests do, on machines without a card).
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import torch
 
 
@@ -31,3 +34,28 @@ def full_precision_fp32():
     matmuls, where enabled) would silently keep about 3 digits instead."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def deterministic(on: bool = True):
+    """Inside: ``torch.use_deterministic_algorithms`` (warning, not
+    raising, at an op that has no deterministic form) with cuBLAS's fixed
+    workspace (``CUBLAS_WORKSPACE_CONFIG``, unless the caller set it).
+    Exact resume needs it on the card: cuDNN's default backward
+    algorithms may accumulate with atomics, so two runs of one step can
+    differ in the last bit.  Both settings are put back on leaving;
+    ``on=False`` changes nothing."""
+    if not on:
+        yield
+        return
+    saved_mode = torch.are_deterministic_algorithms_enabled()
+    saved_warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    saved_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved_mode, warn_only=saved_warn)
+        if saved_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)

@@ -22,10 +22,20 @@ image; ``post_process`` writes byte-compatible KITTI txts.  Each stage runs
 inside a named range (``utils/profiling.SPANS``), which a trace reads.
 Instance counts are padded to the JAX package's buckets so both packages
 run identical batches.
+
+With ``mesh`` (``parallel/mesh.DataMesh``) the instance rows are sharded:
+the bucket is rounded up to a multiple of the mesh's size, every mesh
+device holds a replica of the models and LS statistics and gets the
+frames, and shard i (equal contiguous rows of ``meta``) runs the device
+program on ``mesh.devices[i]``; the shards are launched one after another
+without waiting, and their outputs copied into one host array in order.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import functools
 from os.path import join as pjoin
 
 import numpy as np
@@ -39,7 +49,14 @@ from egonet_tpu_torch.models.factory import build_heatmap_model
 from egonet_tpu_torch.models.fc_lifter import build_fc_model
 from egonet_tpu_torch.models.init import numpy_init
 from egonet_tpu_torch.ops import affine, packing
+from egonet_tpu_torch.parallel import mesh as pmesh
 from egonet_tpu_torch.utils.profiling import span
+
+
+def _on(device):
+    """``device`` made current for the CUDA work launched under it."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def _round_up_bucket(n: int, minimum: int = 8) -> int:
@@ -94,12 +111,20 @@ class EgoNet:
     """End-to-end monocular pose estimator (inference facade).
 
     ``device=None`` means CUDA and raises without it; ``dtype=None`` means
-    the config's (bf16 unless ``bf16: false``)."""
+    the config's (bf16 unless ``bf16: false``).  ``mesh`` (a
+    ``parallel/mesh.DataMesh``) shards each batch's instances over its
+    devices; the facade's own device is then the mesh's first."""
 
     def __init__(self, cfgs: dict, pre_trained: bool = False, dtype=None,
-                 rng_seed: int = 0, device=None):
+                 rng_seed: int = 0, device=None, mesh=None):
         self.cfgs = cfgs
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {mesh.devices[0]}")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
+        self.mesh = mesh or pmesh.DataMesh([self.device])
         self.dtype = config_dtype(cfgs) if dtype is None else dtype
         hm = cfgs["heatmapModel"]
         self.resolution = tuple(hm["input_size"])           # (width, height)
@@ -141,7 +166,8 @@ class EgoNet:
     def to_device(self):
         """Move parameters and LS statistics to the device ONCE (HRNet in
         ``channels_last``), keep fp32 convs and matmuls at full fp32, and
-        fold BN / pre-cast the HRNet conv weights for bf16 inference."""
+        fold BN / pre-cast the HRNet conv weights for bf16 inference; with
+        a mesh, copy them to each of its other devices."""
         full_precision_fp32()
         self.hrnet.to(self.device, memory_format=torch.channels_last)
         self.lifter.to(self.device)
@@ -149,6 +175,23 @@ class EgoNet:
         self.ls_stats = {k: torch.as_tensor(np.asarray(v, np.float32),
                                             device=self.device)
                          for k, v in self.ls_stats.items()}
+        self.replicas = {self.device: (self.hrnet, self.lifter,
+                                       self.ls_stats)}
+        for dev in self.mesh.distinct():
+            if dev in self.replicas:
+                continue
+            hrnet = copy.deepcopy(self.hrnet).to(
+                dev, memory_format=torch.channels_last)
+            hrnet.prepare_inference()
+            self.replicas[dev] = (hrnet, copy.deepcopy(self.lifter).to(dev),
+                                  {k: v.to(dev)
+                                   for k, v in self.ls_stats.items()})
+
+    def prepare_inference(self, **kwargs):
+        """``prepare_inference(**kwargs)`` of every replica's keypoint
+        model (e.g. ``stencil="1"``, which selects the stencil kernel)."""
+        for hrnet, _, _ in self.replicas.values():
+            hrnet.prepare_inference(**kwargs)
 
     def load_state(self, hrnet_state=None, lifter_state=None, ls_stats=None):
         """Load state_dicts (strict) and/or LS statistics, then refresh the
@@ -167,7 +210,8 @@ class EgoNet:
     # ------------------------------------------------------------------
 
     def load_checkpoints(self, ckpt_dir: str):
-        """Load HC.pth / L.pth / LS.npy (whichever exist)."""
+        """Load HC.pth / L.pth / LS.npy (whichever exist); after
+        construction, the device copies (every mesh replica) follow."""
         import os
         hc, lf, ls = (pjoin(ckpt_dir, f) for f in ("HC.pth", "L.pth", "LS.npy"))
         if os.path.exists(hc):
@@ -178,17 +222,21 @@ class EgoNet:
                                         strict=True)
         if os.path.exists(ls):
             self.ls_stats = weights.load_lifter_stats(ls)
+        if hasattr(self, "replicas"):
+            self.to_device()
 
     # ------------------------------------------------------------------
     # the device program
     # ------------------------------------------------------------------
 
-    def _core(self, images, meta, img_idx=None, *, alpha_mode: str):
+    def _core(self, images, meta, img_idx=None, *, alpha_mode: str,
+              replica=None):
         """Canvas mode: images [B, Hc, Wc, 3] uint8; meta [N, META_COLS];
         img_idx [N] host ints (each instance's frame, read as a view), or
         None: the frame indices are read from meta's column 8 on the
         device and the frames gathered (the exported program's form, whose
-        graph takes no host ints; ``io/export.py``)."""
+        graph takes no host ints; ``io/export.py``).  ``replica``: the
+        (hrnet, lifter, LS statistics) to run, by default the facade's."""
         width, height = self.resolution
         inv_mats, _o, idx, valid, K_f, K_cx, img_wh, _b = _unpack_meta(meta)
         if img_idx is None:
@@ -197,10 +245,10 @@ class EgoNet:
             patches = affine.warp_affine_separable(
                 images, inv_mats, img_idx, (height, width), dtype=self.dtype)
         return self._tail(patches, inv_mats, valid, K_f, K_cx, img_wh,
-                          alpha_mode)
+                          alpha_mode, replica)
 
     def _core_packed(self, canvas, meta, win_y, *, alpha_mode: str,
-                     window_h: int):
+                     window_h: int, replica=None):
         """ROI-packed mode: canvas [Hp, Wp, 3] uint8; win_y [N] host ints."""
         width, height = self.resolution
         inv_mats, offsets, _w, valid, K_f, K_cx, img_wh, bounds = \
@@ -210,19 +258,20 @@ class EgoNet:
                 canvas, inv_mats, offsets, win_y, (height, width),
                 window_h=window_h, dtype=self.dtype, bounds=bounds)
         return self._tail(patches, inv_mats, valid, K_f, K_cx, img_wh,
-                          alpha_mode)
+                          alpha_mode, replica)
 
     def _tail(self, patches, inv_mats, valid, K_f, K_cx, img_wh,
-              alpha_mode: str):
+              alpha_mode: str, replica=None):
         """Post-warp body shared by both transports -> flat [N, D] fp32:
         screen kpts, lifter output, angles, translation, alpha, valid."""
         width, height = self.resolution
-        ls = self.ls_stats
+        hrnet, lifter, ls = replica or (self.hrnet, self.lifter,
+                                        self.ls_stats)
         with span("normalize"):
             crops = affine.normalize_crop_patches(
                 self.cfgs, patches, inv_mats, img_wh, (height, width))
         with span("backbone"):
-            _maps, coords = self.hrnet(crops.permute(0, 3, 1, 2))
+            _maps, coords = hrnet(crops.permute(0, 3, 1, 2))
         with span("inverse_affine"):
             local = coords * torch.tensor([width, height],
                                           dtype=torch.float32,
@@ -233,7 +282,7 @@ class EgoNet:
         with span("lifter"):
             flat = screen.reshape(n, -1)
             norm_in = (flat - ls["mean_in"]) / ls["std_in"]
-            pred = self.lifter(norm_in)
+            pred = lifter(norm_in)
             pred = pred * ls["std_out"] + ls["mean_out"]
             kpts_3d = pred.reshape(n, -1, 3)
 
@@ -365,6 +414,7 @@ class EgoNet:
             if pack_profile == "serving":
                 bucket = max(bucket, 128 if bucket_floor is None
                              else int(bucket_floor))
+            bucket = pmesh.pad_to_multiple(bucket, len(self.mesh))
             pad = bucket - n_total
             valid = np.concatenate([np.ones(n_total, np.float32),
                                     np.zeros(pad, np.float32)])
@@ -388,39 +438,56 @@ class EgoNet:
             meta[:, 12:14] = 1.0
             meta[:n_total, 12:14] = np.asarray(whs, np.float32)
 
-        images_d = self._upload(images)
-        meta_d = self._upload(meta)
-        with torch.inference_mode():
-            if use_pack:
-                out = self._core_packed(images_d, meta_d, src_idx,
-                                        alpha_mode=alpha_mode,
-                                        window_h=plan.window_h)
-            else:
-                out = self._core(images_d, meta_d, src_idx,
-                                 alpha_mode=alpha_mode)
-            host, ready = self._download(out)
+        run = (functools.partial(self._core_packed, window_h=plan.window_h)
+               if use_pack else self._core)
+        host, ready = self._run(run, images, meta, src_idx, alpha_mode)
         ctx = dict(annot_dict=annot_dict, paths=paths,
                    per_image_counts=per_image_counts, centers=centers,
                    scales=scales, rbs=rbs)
         return host, ready, ctx
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+    def _run(self, run, images, meta, src_idx, alpha_mode):
+        """Enqueue the device program ``run`` (``_core`` or a
+        ``_core_packed``) on the batch, shard by shard over the mesh (one
+        shard without one), and the copy of its output to the host;
+        returns (host tensor, CUDA events to wait on)."""
+        frames, outs = {}, []
+        with torch.inference_mode():
+            for dev, (a, b) in zip(self.mesh, pmesh.shard_bounds(
+                    len(meta), len(self.mesh))):
+                with _on(dev):
+                    if dev not in frames:
+                        frames[dev] = self._upload(images, dev)
+                    outs.append(run(frames[dev], self._upload(meta[a:b], dev),
+                                    src_idx[a:b], alpha_mode=alpha_mode,
+                                    replica=self.replicas[dev]))
+            return self._download(outs)
+
+    def _upload(self, arr: np.ndarray, device=None) -> torch.Tensor:
+        device = self.device if device is None else device
         with span("h2d"):
             t = torch.from_numpy(np.ascontiguousarray(arr))
-            if self.device.type == "cpu":
+            if device.type == "cpu":
                 return t
-            return t.pin_memory().to(self.device, non_blocking=True)
+            return t.pin_memory().to(device, non_blocking=True)
 
-    def _download(self, out: torch.Tensor):
-        """Start the device->host copy of the fused output into pinned
-        memory; returns (host tensor, CUDA event to wait on, or None)."""
+    def _download(self, outs: list):
+        """Start the device->host copy of the fused outputs (one per shard,
+        in order) into one pinned host array; returns (host tensor, the
+        CUDA events to wait on: one per shard)."""
         with span("d2h"):
             if self.device.type == "cpu":
-                return out, None
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
+                return (outs[0] if len(outs) == 1 else torch.cat(outs)), []
+            n = sum(len(o) for o in outs)
+            host = torch.empty((n,) + tuple(outs[0].shape[1:]),
+                               dtype=outs[0].dtype, pin_memory=True)
+            ready, start = [], 0
+            for out in outs:
+                with torch.cuda.device(out.device):
+                    host[start:start + len(out)].copy_(out, non_blocking=True)
+                    ready.append(torch.cuda.Event())
+                    ready[-1].record()
+                start += len(out)
             return host, ready
 
     def finalize(self, pending) -> dict:
@@ -433,8 +500,8 @@ class EgoNet:
 
     def _finalize(self, pending) -> dict:
         host, ready, ctx = pending
-        if ready is not None:
-            ready.synchronize()
+        for event in ready:
+            event.synchronize()
         flat = host.numpy()
         annot_dict = ctx["annot_dict"]
         per_image_counts = ctx["per_image_counts"]

@@ -20,12 +20,21 @@ import torch.nn.functional as F
 from egonet_tpu_torch.models.layers import batch_norm
 
 
-def dropout(x, p: float, generator: torch.Generator | None):
+def dropout(x, p: float, generator: torch.Generator | None, rows=None):
     """Inverted dropout (keep with probability 1-p, scale by 1/(1-p)), the
-    mask drawn from ``generator`` (torch's global stream when None)."""
+    mask drawn from ``generator`` (torch's global stream when None).
+    ``rows`` = (start, total): ``x`` holds rows [start, start + len(x)) of
+    a batch of ``total`` rows (one rank's shard of a data-parallel batch),
+    and the mask is that batch's, drawn whole, so it does not depend on
+    how the batch is split."""
     if p <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    if rows is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    else:
+        start, total = rows
+        keep = torch.rand((total,) + tuple(x.shape[1:]), generator=generator,
+                          device=x.device)[start:start + len(x)] >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
@@ -65,20 +74,21 @@ class FCModel(nn.Module):
         return batch_norm(m, x, self.stat_dtype).to(self.dtype)
 
     def forward(self, x, apply_dropout: bool | None = None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, rows=None):
         """``apply_dropout=True`` keeps dropout stochastic while BN uses
         running statistics (the dropout-at-test evaluation option);
-        ``generator`` draws the dropout masks."""
+        ``generator`` draws the dropout masks, ``rows`` places ``x`` in
+        the batch they are drawn for (:func:`dropout`)."""
         drop = self.training if apply_dropout is None else bool(apply_dropout)
         p = self.p_dropout if drop else 0.0
         x = x.to(self.dtype)
         y = self._act(self._bn(self.batch_norm1, self._dense(self.w1, x)))
-        y = dropout(y, p, generator)
+        y = dropout(y, p, generator, rows)
         for blk in self.res_blocks:
             z = self._act(self._bn(blk.batch_norm1, self._dense(blk.w1, y)))
-            z = dropout(z, p, generator)
+            z = dropout(z, p, generator, rows)
             z = self._act(self._bn(blk.batch_norm2, self._dense(blk.w2, z)))
-            z = dropout(z, p, generator)
+            z = dropout(z, p, generator, rows)
             y = y + z
         return self._dense(self.w2, y).to(self.stat_dtype)
 

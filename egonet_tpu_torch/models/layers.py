@@ -3,7 +3,8 @@ families and the FC lifter).
 
 ``batch_norm`` is the JAX package's batch norm (flax ``BatchNorm`` with
 ``use_fast_variance=False``): train mode normalizes with the biased batch
-statistics and moves the running variance with the biased batch variance.
+statistics and moves the running variance with the biased batch variance;
+in a data-parallel run the statistics are the global batch's.
 ``Ops`` runs a model's layers in its compute dtype, from pre-cast inference
 weights where a model has them, with the int8 activation transport
 (``act_quant``) of the JAX package; ``CachedInference`` is the base of the
@@ -16,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from egonet_tpu_torch.parallel import mesh
 
 BN_MOMENTUM = 0.1
 
@@ -33,6 +36,8 @@ def batch_norm(m: nn.modules.batchnorm._BatchNorm, x, stat_dtype):
     if not m.training:
         return F.batch_norm(x, m.running_mean, m.running_var, m.weight,
                             m.bias, False, 0.0, m.eps)
+    if mesh.active():
+        return _group_batch_norm(m, x)
     # the kernel moves a copy (autograd keeps it for the backward)
     moved = m.running_var.clone()
     y = F.batch_norm(x, m.running_mean, moved, m.weight, m.bias, True,
@@ -41,6 +46,32 @@ def batch_norm(m: nn.modules.batchnorm._BatchNorm, x, stat_dtype):
     with torch.no_grad():
         old = m.running_var.mul_(1.0 - m.momentum)
         old.sub_(moved).div_(n).add_(moved)
+        m.num_batches_tracked.add_(1)
+    return y
+
+
+def _group_batch_norm(m: nn.modules.batchnorm._BatchNorm, x):
+    """Train-mode batch norm over the instance axis of every rank of the
+    process group (the JAX mesh step's statistics over the global batch,
+    wrap rows included): the global mean, then the global biased variance
+    of the centred values (two passes: E[x^2] - E[x]^2 cancels), each a
+    differentiable sum over the ranks.  The global count needs no
+    collective: every rank holds an equal shard of a static-shape batch
+    (``parallel/mesh.shard_batch``).  The running buffers move by the
+    biased variance, as in one process."""
+    dims = [d for d in range(x.dim()) if d != 1]
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    count = x.numel() // x.shape[1] * mesh.world()
+    mean = mesh.all_reduce_sum(x.sum(dims)) / count
+    xc = x - mean.view(shape)
+    var = mesh.all_reduce_sum((xc * xc).sum(dims)) / count
+    y = xc * torch.rsqrt(var + m.eps).view(shape)
+    y = y * m.weight.to(x.dtype).view(shape) + m.bias.to(x.dtype).view(shape)
+    with torch.no_grad():
+        m.running_mean.mul_(1.0 - m.momentum).add_(
+            mean.detach().to(m.running_mean.dtype), alpha=m.momentum)
+        m.running_var.mul_(1.0 - m.momentum).add_(
+            var.detach().to(m.running_var.dtype), alpha=m.momentum)
         m.num_batches_tracked.add_(1)
     return y
 

@@ -367,20 +367,25 @@ def fused_basic_block_stencil(x, w1, b1, w2, b2, tile=None) -> torch.Tensor:
     raises."""
     if tile is None or x.device.type == "cpu":
         return torch.ops.egonet.fused_basic_block_stencil(x, w1, b1, w2, b2)
-    _check(x, w1, b1, w2, b2)
-    _check_width(x.shape[3])
-    return _launch(x, w1, b1, w2, b2,
-                   *_default_launcher(plan_for(x.shape[3], tile)))
+    return _op_cuda(x, w1, b1, w2, b2, tile)
 
 
 @torch.library.custom_op("egonet::fused_basic_block_stencil",
                          mutates_args=(), device_types="cuda")
 def _stencil_cuda(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                   w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    _check(x, w1, b1, w2, b2)
-    _check_width(x.shape[3])
-    return _launch(x, w1, b1, w2, b2,
-                   *_default_launcher(plan_for(x.shape[3])))
+    return _op_cuda(x, w1, b1, w2, b2)
+
+
+def _op_cuda(x, w1, b1, w2, b2, tile=None):
+    """The CUDA body (the op's, or a ``tile`` override's), under x's
+    device: the launcher's cluster-occupancy query and the launch act on
+    the card that holds the operands, not on the thread's current one."""
+    with torch.cuda.device(x.device):
+        _check(x, w1, b1, w2, b2)
+        _check_width(x.shape[3])
+        return _launch(x, w1, b1, w2, b2,
+                       *_default_launcher(plan_for(x.shape[3], tile)))
 
 
 @_stencil_cuda.register_kernel("cpu")
@@ -397,12 +402,15 @@ def _stencil_fake(x, w1, b1, w2, b2):
 
 def _launch(x, w1, b1, w2, b2, plan, struct, fn) -> torch.Tensor:
     """Launch the kernel on checked CUDA operands with ``plan`` (its
-    ``struct``) through ``fn``, a library's entry point."""
+    ``struct``) through ``fn``, a library's entry point, on the calling
+    thread's current stream of x's device, with that device current (the
+    kernel's shared-memory attribute is set per device)."""
     n, h, w, c = x.shape
     y = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-             b2.data_ptr(), y.data_ptr(), n, h, w, c, struct, stream)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                 b2.data_ptr(), y.data_ptr(), n, h, w, c, struct, stream)
     if err != 0:
         raise RuntimeError(
             f"fused_basic_block_stencil launch failed: CUDA error {err} "

@@ -22,7 +22,8 @@ No external dependencies: ``http.server`` + threads.  Endpoints:
                       "translation", "kpts_2d", "kpts_3d"}, ...],
                       "batched_with": n_images_in_microbatch,
                       "latency_ms": ...}
-  GET  /healthz   liveness + the model's device (type, card name)
+  GET  /healthz   liveness + the model's device (type, card name) and,
+                  sharded, the mesh's devices
   GET  /v1/stats  request/batch counters + model transport stats
 
 Status codes: 400 malformed payload, 404 unknown path, 500 inference
@@ -253,12 +254,15 @@ def decode_b64(text: str) -> np.ndarray:
 
 def device_info(model) -> dict:
     """The model's device for /healthz: ``platform`` ('gpu' or 'cpu'),
-    the torch device and, on a card, its name."""
+    the torch device and, on a card, its name; with a mesh of more than
+    one shard, its devices in shard order (``mesh``)."""
     dev = torch.device(model.device)
     info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
             "device": str(dev)}
     if dev.type == "cuda":
         info["device_name"] = torch.cuda.get_device_name(dev)
+    if len(getattr(model, "mesh", ())) > 1:
+        info["mesh"] = [str(d) for d in model.mesh]
     return info
 
 

@@ -3,6 +3,7 @@ card (port of ``tools/serve.py``; see ``egonet_tpu_torch/serving``).
 
     python -m egonet_tpu_torch.tools.serve --cfg <yaml> \\
         [--host 127.0.0.1] [--port 8476] [--max-batch 16] [--max-wait-ms 10]
+        [--devices N]
 
 Then:
   curl -s localhost:8476/healthz
@@ -10,9 +11,12 @@ Then:
        "boxes": [[446.9, 201.7, 545.7, 300.2]],
        "K": [[707.0, 0, 604.0], [0, 707.0, 180.0], [0, 0, 1]]}'
 
-The model runs on CUDA unless the config says ``device: cpu``.  On a host
-without PyYAML, call ``main(argv, cfgs=<dict>)``; ``block=False`` returns
-the started server instead of serving until interrupted.
+The model runs on CUDA unless the config says ``device: cpu``.
+``--devices N`` shards each micro-batch's instances over the first N cards
+(``parallel/mesh.make_mesh``; an error when fewer are visible, and on the
+CPU).  On a host without PyYAML, call ``main(argv, cfgs=<dict>)``;
+``block=False`` returns the started server instead of serving until
+interrupted.
 """
 
 from __future__ import annotations
@@ -44,14 +48,10 @@ def main(argv=None, cfgs=None, block: bool = True):
                         help="1: build the kernels and run both serving "
                              "buckets at boot")
     parser.add_argument("--devices", type=int, default=1,
-                        help="cards to shard each micro-batch over (only 1 "
-                             "is ported)")
+                        help="shard each micro-batch's instances over the "
+                             "first N cards (one process, a replica of the "
+                             "models on each card)")
     args = parser.parse_args(argv)
-    if args.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1 (micro-batches sharded over several cards) is "
-            "not ported yet: it comes with parallel/mesh.py, the "
-            "scale-out slice queued in ROADMAP.md")
     from egonet_tpu_torch import config as cfg_mod
     from egonet_tpu_torch.models.egonet import EgoNet
     from egonet_tpu_torch.serving import PoseServer
@@ -61,9 +61,22 @@ def main(argv=None, cfgs=None, block: bool = True):
         cfgs = cfg_mod.load_config(args.cfg)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     logger = logging.getLogger("egonet-serve")
+    data_mesh = None
+    if args.devices > 1:
+        from egonet_tpu_torch.parallel import mesh
+        if cfgs.get("device") not in (None, "cuda"):
+            parser.error(f"--devices {args.devices} shards over cards; the "
+                         f"config's device is {cfgs.get('device')!r}")
+        try:
+            data_mesh = mesh.make_mesh(args.devices)
+        except ValueError as exc:
+            parser.error(str(exc))
+        logger.info("sharding micro-batches over %s", data_mesh)
     # same checkpoint and precision policy as the inference CLI
     model = EgoNet(cfgs, pre_trained=cfgs.get("pre_trained", True),
-                   dtype=cfg_mod.config_dtype(cfgs), device=cfgs.get("device"))
+                   dtype=cfg_mod.config_dtype(cfgs),
+                   device=None if data_mesh else cfgs.get("device"),
+                   mesh=data_mesh)
     server = PoseServer(model, host=args.host, port=args.port,
                         max_images=args.max_batch,
                         max_wait_ms=args.max_wait_ms,

@@ -2,12 +2,14 @@
 ``LS.npy`` (port of ``tools/train_lifting.py``).
 
     python -m egonet_tpu_torch.tools.train_lifting --cfg <yaml>
+    torchrun --nproc_per_node=N -m egonet_tpu_torch.tools.train_lifting --cfg <yaml>
 
 On a host without PyYAML, call ``main(cfgs=<dict>)`` (e.g.
 ``config.train_lifting_config()`` plus ``dataset.root`` and ``dirs``).
 Trains on CUDA unless the config says ``device: cpu``.  The files go to
-``<dirs.output>/<dataset name>/checkpoints/``.  Exact resume
-(``training_settings.exact_resume``) is not ported yet and raises.
+``<dirs.output>/<dataset name>/checkpoints/``.  Under torchrun the step
+is data parallel, and ``training_settings.exact_resume`` resumes exactly,
+under deterministic algorithms, as in ``tools/train_igrs.py``.
 """
 
 from __future__ import annotations
@@ -17,18 +19,21 @@ import os
 
 from egonet_tpu_torch import config as cfg_mod
 from egonet_tpu_torch.data import kitti as libkitti
+from egonet_tpu_torch.device import deterministic
+from egonet_tpu_torch.parallel import mesh
+from egonet_tpu_torch.tools.train_igrs import exact_resume, start_device
 from egonet_tpu_torch.utils.logger import get_logger
 
 
 def main(argv=None, cfgs=None) -> dict:
     """Returns {"ckpt_dir", "history", "train_pairs", "valid_pairs"}."""
     cfgs = cfg_mod.parse_args(argv) if cfgs is None else copy.deepcopy(cfgs)
-    if cfgs.get("training_settings", {}).get("exact_resume"):
-        raise NotImplementedError(
-            "training_settings.exact_resume (full-state resume, "
-            "io/orbax_ckpt.py) is not ported yet (ROADMAP queue 1)")
-    from egonet_tpu_torch.device import resolve_device
-    device = resolve_device(cfgs.get("device"))
+    with deterministic(bool(cfgs["training_settings"].get("exact_resume"))):
+        return _train(cfgs)
+
+
+def _train(cfgs: dict) -> dict:
+    device = start_device(cfgs)
     logger, out_dir = get_logger(cfgs)
 
     from egonet_tpu_torch.io import checkpoint
@@ -42,12 +47,25 @@ def main(argv=None, cfgs=None) -> dict:
     cfgs["FCModel"].setdefault("output_size", int(train_set.output.shape[1]))
 
     batch = int(cfgs["training_settings"].get("batch_size", 2048))
-    steps = max(1, len(train_set.input) // batch)
+    per_node = -(-len(train_set.input) // mesh.node()[1])
+    steps = max(1, per_node // batch)
     trainer = LiftingTrainer(cfgs, steps_per_epoch=steps, logger=logger,
                              device=device)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
     os.makedirs(ckpt_dir, exist_ok=True)
-    state, history = trainer.fit(train_set, valid_set)
+    manager, state, start_epoch = exact_resume(
+        cfgs["training_settings"], ckpt_dir, trainer.init_state(0), logger)
+    try:
+        state, history = trainer.fit(train_set, valid_set, state=state,
+                                     ckpt_manager=manager,
+                                     start_epoch=start_epoch)
+    finally:
+        if manager is not None:
+            manager.close()
+    if not mesh.is_main():
+        return {"ckpt_dir": ckpt_dir, "history": history,
+                "train_pairs": len(train_set.input),
+                "valid_pairs": len(valid_set.input)}
     if cfgs.get("evaluate") or cfgs.get("visualize"):
         trainer.evaluate(
             state, valid_set,

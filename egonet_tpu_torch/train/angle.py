@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from egonet_tpu_torch.data.loader import IGRBatchLoader
-from egonet_tpu_torch.train import losses, optim
+from egonet_tpu_torch.parallel import mesh
+from egonet_tpu_torch.train import losses
 from egonet_tpu_torch.train.igrs import _FLOAT_KEYS, CropTrainer, TrainState
 from egonet_tpu_torch.train.metrics import get_angle_error
 from egonet_tpu_torch.utils.profiling import span
@@ -74,18 +75,14 @@ class AngleTrainer(CropTrainer):
                                       batch["mask"])
 
     def train_step(self, state: TrainState, batch):
-        """One step; returns (state, loss as a device scalar)."""
-        b = self._device_batch(batch)
+        """One step (data parallel in a process group, as the IGR
+        trainer's); returns (state, the global batch's loss as a device
+        scalar)."""
+        b = self._train_batch(batch)
         state.model.train()
         loss = self.loss_fn(state.model, b)
-        with span("backward"):
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        with span("optimizer"):
-            optim.set_lr(state.optimizer, self.schedule(state.step))
-            state.optimizer.step()
-        state.step += 1
-        return state, loss.detach()
+        state = self._apply_step(state, loss)
+        return state, mesh.all_reduce_values({"loss": loss})["loss"]
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch):

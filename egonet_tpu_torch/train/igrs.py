@@ -11,6 +11,15 @@ named range (``utils/profiling.TRAIN_SPANS``), so a trace charges the
 device time to it.  The cross-ratio term switches on from epoch 1.  The
 trainer runs on CUDA unless asked for the CPU (``device="cpu"``); fp32
 runs keep TF32 off.
+
+In a process group of several ranks (``parallel/mesh``; the JAX trainer's
+``mesh``) the step is data parallel: every rank of a node builds the
+node's batch, keeps its rows (``mesh.shard_batch``), normalizes with the
+global batch's statistics and loss counts, and the gradients are summed
+over the ranks before the step; rank 0's initial values are broadcast,
+and only rank 0 logs, evaluates and writes files.  ``fit`` saves the full
+state after each epoch through a ``TrainCheckpointManager``
+(``io/train_ckpt.py``) and resumes from one (``state``, ``start_epoch``).
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from egonet_tpu_torch.models.factory import build_heatmap_model
 from egonet_tpu_torch.models.init import numpy_init
 from egonet_tpu_torch.ops import affine
 from egonet_tpu_torch.ops.keypoints import gaussian_targets
+from egonet_tpu_torch.parallel import mesh
 from egonet_tpu_torch.train import losses, optim
 from egonet_tpu_torch.utils.profiling import span
 
@@ -67,7 +77,7 @@ class CropTrainer:
                  steps_per_epoch: int = 1, logger=None, device=None):
         self.cfgs = cfgs
         self.dtype = dtype
-        self.logger = logger
+        self.logger = logger if mesh.is_main() else None
         self.device = resolve_device(device)
         self.steps_per_epoch = int(steps_per_epoch)
         full_precision_fp32()
@@ -81,14 +91,16 @@ class CropTrainer:
     def init_state(self, rng_seed: int = 0, variables=None) -> TrainState:
         """The model with the JAX package's initial values for
         ``rng_seed``, or with ``variables`` (a ``state_dict``, loaded
-        strictly), on the device in train mode, with the frozen layers
-        (``extra.freeze_layers``) left out of the optimizer."""
+        strictly), on the device in train mode (rank 0's values on every
+        rank), with the frozen layers (``extra.freeze_layers``) left out of
+        the optimizer."""
         model = self.model
         if variables is None:
             numpy_init(model, rng_seed)
         else:
             model.load_state_dict(variables, strict=True)
         model.to(self.device, memory_format=torch.channels_last)
+        mesh.broadcast_module(model)
         model.train()
         params = optim.apply_freezing(model, self._freeze_layers())
         opt, self.schedule = optim.prepare_optim(self.cfgs, params,
@@ -98,12 +110,14 @@ class CropTrainer:
     def _device_batch(self, batch):
         """Host batch -> device tensors (pinned, asynchronous copies on the
         card).  ``img_idx`` stays on the host (the warp reads each
-        instance's frame as a view); ``meta`` is kept as it is."""
+        instance's frame as a view); ``meta`` and a data-parallel shard's
+        place (``shard``) are kept as they are."""
         if isinstance(batch.get("mask"), torch.Tensor):
             return batch                    # already transferred (prefetch)
         out = {"img_idx": np.asarray(batch["img_idx"])}
-        if "meta" in batch:
-            out["meta"] = batch["meta"]
+        for k in ("meta", "shard"):
+            if k in batch:
+                out[k] = batch[k]
         cuda = self.device.type == "cuda"
         with span("h2d"):
             for k in ("images",) + self.float_keys:
@@ -126,6 +140,34 @@ class CropTrainer:
             return affine.normalize_crop_patches(
                 self.cfgs, patches, batch["inv_mats"], batch.get("img_wh"),
                 (h, w))
+
+    def _train_batch(self, batch):
+        """This rank's rows of a host batch (all of it in one process) on
+        the device."""
+        return self._device_batch(mesh.shard_batch(batch))
+
+    def _apply_step(self, state: TrainState, loss):
+        """Backward, the gradients summed over the ranks, and the optimizer
+        step at the schedule's rate."""
+        with span("backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            mesh.all_reduce_grads(state.model.parameters())
+        with span("optimizer"):
+            optim.set_lr(state.optimizer, self.schedule(state.step))
+            state.optimizer.step()
+        state.step += 1
+        return state
+
+
+def _real_rows(batch) -> int:
+    """How many of the batch's rows (a shard's, in a data-parallel run)
+    are real instances: the padding follows them."""
+    m = batch["meta"]["count"]
+    if "shard" not in batch:
+        return m
+    start, stop, _ = batch["shard"]
+    return max(0, min(m, stop) - start)
 
 
 class IGRTrainer(CropTrainer):
@@ -162,19 +204,12 @@ class IGRTrainer(CropTrainer):
 
     def train_step(self, state: TrainState, batch, apply_cr: bool = False):
         """One step; returns (state, {"loss", components...} as device
-        scalars: reading one waits for the step)."""
-        b = self._device_batch(batch)
+        scalars of the global batch: reading one waits for the step)."""
+        b = self._train_batch(batch)
         state.model.train()
         total, comps = self.loss_fn(state.model, b, apply_cr)
-        with span("backward"):
-            state.optimizer.zero_grad(set_to_none=True)
-            total.backward()
-        with span("optimizer"):
-            optim.set_lr(state.optimizer, self.schedule(state.step))
-            state.optimizer.step()
-        state.step += 1
-        return state, {"loss": total.detach(),
-                       **{k: v.detach() for k, v in comps.items()}}
+        state = self._apply_step(state, total)
+        return state, mesh.all_reduce_values({"loss": total, **comps})
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch):
@@ -229,7 +264,7 @@ class IGRTrainer(CropTrainer):
         b = self._device_batch(batch)
         crops = self._crops_from_batch(b).cpu().numpy()
         out = self.eval_step(state, b)
-        m = batch["meta"]["count"]
+        m = _real_rows(b)
         w, h = self.input_size
         coords = out["coords"][:m].float().cpu().numpy() * np.array([w, h])
         joints = b["joints"][:m]
@@ -245,13 +280,19 @@ class IGRTrainer(CropTrainer):
             seed: int = 0, report_every: int | None = None, eval_hook=None,
             snapshot_dir: str | None = None, state=None,
             ss_record=None, ss_img_root: str = "", ss_max_per_img: int = 6,
-            loader_kwargs=None):
+            ckpt_manager=None, start_epoch: int = 0, loader_kwargs=None):
         """The training loop: a loader per run, cross-ratio from epoch 1,
         logging every ``report_every`` batches, debug grids at each
         period's batch 0 (``training_settings.debug``), evaluation every
         ``eval_every`` batches and after each epoch (``eval_during``), and
         snapshots at ``snapshot_epochs``.  Each step's loss is read one step
         late, so the host never waits for the step it just launched.
+        ``ckpt_manager`` (``io/train_ckpt.TrainCheckpointManager``) saves
+        the full state after every epoch (asynchronously, drained at the
+        end); to resume exactly, pass the ``state`` restored from it and
+        ``start_epoch`` = its latest step.  With either, each epoch's
+        shuffle is keyed by (seed, epoch), so a resumed run sees the
+        batches the uninterrupted one would.
         Returns (state, history: per epoch loss, seconds and ``split``,
         the epoch's wall seconds by what the host was doing: ``load``
         waiting for the loader's next batch, ``step`` launching the steps
@@ -265,7 +306,9 @@ class IGRTrainer(CropTrainer):
         eval_start_epoch = int(settings.get("eval_start_epoch", 0) or 0)
         snapshot_epochs = set(settings.get("snapshot_epochs", []))
         debug_cfg = settings.get("debug", {}) or {}
-        dump_debug = bool(debug_cfg.get("save")) and snapshot_dir
+        main = mesh.is_main()
+        dump_debug = bool(debug_cfg.get("save")) and snapshot_dir and main
+        eval_during = eval_during and main
         loader = IGRBatchLoader(train_records, self.cfgs, train=True,
                                 seed=seed, ss_record=ss_record,
                                 ss_img_root=ss_img_root,
@@ -274,15 +317,17 @@ class IGRTrainer(CropTrainer):
         if state is None:
             state = self.init_state(seed)
         history = []
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             loader.set_epoch(epoch)
+            if ckpt_manager is not None or start_epoch:
+                loader.reseed((seed + 1) * 1_000_003 + epoch)
             apply_cr = epoch >= 1 and self.loss_cfg.use_cr
             t0 = time.time()
             laps = _Laps()
             n_batches = 0
             running = 0.0
             pending_loss = None
-            for batch in loader.prefetched_epoch(device_fn=self._device_batch):
+            for batch in loader.prefetched_epoch(device_fn=self._train_batch):
                 laps("load")
                 state, metrics = self.train_step(state, batch, apply_cr)
                 n_batches += 1
@@ -323,12 +368,16 @@ class IGRTrainer(CropTrainer):
                     f"{history[-1]['loss']:.5f} ({dt:.1f}s)")
             if eval_during and valid_records:
                 self.evaluate(state, valid_records)
-            if snapshot_dir and (epoch + 1) in snapshot_epochs:
+            if snapshot_dir and (epoch + 1) in snapshot_epochs and main:
                 self.save_snapshot(state,
                                    f"{snapshot_dir}/HC_epoch{epoch + 1}")
+            if ckpt_manager is not None:
+                ckpt_manager.save(epoch + 1, state)
             if eval_hook is not None:
                 eval_hook(self, state, epoch)
-        if settings.get("plot_loss") and snapshot_dir and history:
+        if ckpt_manager is not None:
+            ckpt_manager.wait_until_finished()
+        if settings.get("plot_loss") and snapshot_dir and history and main:
             self._plot_loss_curve(history, f"{snapshot_dir}/loss.png")
         return state, history
 

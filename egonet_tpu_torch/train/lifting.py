@@ -6,6 +6,12 @@ a multi-step rate.  The trainer runs on CUDA unless asked for the CPU
 (``device="cpu"``).  Dropout masks come from a ``torch.Generator`` seeded
 from (seed, step), so a run is repeatable; they are not the JAX package's
 masks (its ``fold_in`` stream has no torch counterpart).
+
+In a process group of several ranks the step is data parallel, as the IGR
+trainer's (``train/igrs.py``): each rank keeps its rows of its node's
+batch, batch norm and the loss count are the global batch's, gradients are
+summed, and each rank draws the global batch's dropout mask and keeps its
+rows.  ``fit`` takes the exact-resume contract of the IGR trainer.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from egonet_tpu_torch.data.loader import ArrayBatchLoader
 from egonet_tpu_torch.device import full_precision_fp32, resolve_device
 from egonet_tpu_torch.models.fc_lifter import FCModel, build_fc_model
 from egonet_tpu_torch.models.init import numpy_init
+from egonet_tpu_torch.parallel import mesh
 from egonet_tpu_torch.train import losses, optim
 
 
@@ -44,7 +51,7 @@ class LiftingTrainer:
                  steps_per_epoch: int = 1, logger=None, device=None):
         self.cfgs = cfgs
         self.dtype = dtype
-        self.logger = logger
+        self.logger = logger if mesh.is_main() else None
         self.device = resolve_device(device)
         self.steps_per_epoch = int(steps_per_epoch)
         self._eval_calls = 0
@@ -61,10 +68,11 @@ class LiftingTrainer:
 
     def build_model(self, rng_seed: int = 0) -> FCModel:
         """The lifter with the JAX package's initial values for
-        ``rng_seed``, on the trainer's device."""
+        ``rng_seed`` (rank 0's on every rank), on the trainer's device."""
         model = numpy_init(build_fc_model(self.cfgs, dtype=self.dtype),
-                           rng_seed)
-        return model.to(self.device)
+                           rng_seed).to(self.device)
+        mesh.broadcast_module(model)
+        return model
 
     def init_state(self, rng_seed: int = 0, model=None) -> TrainState:
         model = model if model is not None else self.build_model(rng_seed)
@@ -74,32 +82,36 @@ class LiftingTrainer:
         return TrainState(model, opt, 0)
 
     def _device_batch(self, batch):
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device)
+        return {k: (v if k == "shard"
+                    else torch.as_tensor(np.asarray(v)).to(self.device))
                 for k, v in batch.items()}
 
     def loss_fn(self, model, batch, generator=None):
-        out = model(batch["input"], generator=generator)
+        rows = (mesh.global_rows(batch["shard"]) if "shard" in batch
+                else None)
+        out = model(batch["input"], generator=generator, rows=rows)
         loss = self._loss(out, batch["output"], batch["mask"])
         if self.loss_sum:
             # reduction='sum': the total, not the per-element mean
-            loss = loss * torch.broadcast_to(batch["mask"][:, None],
-                                             out.shape).sum()
+            loss = loss * mesh.all_reduce_count(torch.broadcast_to(
+                batch["mask"][:, None], out.shape).sum())
         return loss
 
     def train_step(self, state: TrainState, batch, seed: int = 0):
         """One Adam / SGD step on a host batch {input, output, mask}, the
-        dropout masks drawn from (seed, step); returns (state, loss tensor
-        on the device)."""
-        b = self._device_batch(batch)
+        dropout masks drawn from (seed, step); returns (state, the global
+        batch's loss, a tensor on the device)."""
+        b = self._device_batch(mesh.shard_batch(batch, replicated_keys=()))
         g = step_generator(seed, state.step, self.device)
         state.model.train()
         loss = self.loss_fn(state.model, b, g)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        mesh.all_reduce_grads(state.model.parameters())
         optim.set_lr(state.optimizer, self.schedule(state.step))
         state.optimizer.step()
         state.step += 1
-        return state, loss.detach()
+        return state, mesh.all_reduce_values({"loss": loss})["loss"]
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch):
@@ -121,10 +133,11 @@ class LiftingTrainer:
         return out
 
     def fit(self, train_set, valid_set=None, epochs=None, seed: int = 0,
-            state=None):
+            state=None, ckpt_manager=None, start_epoch: int = 0):
         """train_set: KITTIDataset with exp_type '2dto3d' (normalized).
         Returns (state, history: per epoch loss, seconds and, with a valid
-        set, its MSE)."""
+        set, its MSE).  ``ckpt_manager`` / ``state`` / ``start_epoch``:
+        exact resume, as in ``IGRTrainer.fit``."""
         settings = self.cfgs.get("training_settings", {})
         epochs = epochs or int(settings.get("total_epochs", 1))
         batch_size = int(settings.get("batch_size", 2048))
@@ -133,8 +146,10 @@ class LiftingTrainer:
         if state is None:
             state = self.init_state(seed)
         history = []
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             loader.set_epoch(epoch)
+            if ckpt_manager is not None or start_epoch:
+                loader.reseed((seed + 1) * 1_000_003 + epoch)
             t0 = time.time()
             total = torch.zeros((), dtype=torch.float64, device=self.device)
             n = 0
@@ -154,6 +169,10 @@ class LiftingTrainer:
                 if self.logger:
                     self.logger.info(f"lifter epoch {epoch}: "
                                      f"valid mse {mse:.6f}")
+            if ckpt_manager is not None:
+                ckpt_manager.save(epoch + 1, state)
+        if ckpt_manager is not None:
+            ckpt_manager.wait_until_finished()
         return state, history
 
     def evaluate(self, state, valid_set, metrics=None,

@@ -15,16 +15,22 @@ import math
 import torch
 
 from egonet_tpu_torch.constants import CR_INDICES, TARGET_CROSS_RATIO
+from egonet_tpu_torch.parallel import mesh
 
 _CR_IDX = torch.as_tensor(CR_INDICES, dtype=torch.long)     # [12, 4]
 
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor | None):
-    """Mean over valid entries; ``mask`` broadcasts against ``values``."""
+    """Mean over valid entries; ``mask`` broadcasts against ``values``.  In
+    a data-parallel run the sum is this rank's and the count the global
+    batch's: the rank's share of the global mean (the shares sum to it)."""
     if mask is None:
-        return values.mean()
+        if not mesh.active():
+            return values.mean()
+        mask = torch.ones((), dtype=values.dtype, device=values.device)
     mask = torch.broadcast_to(mask.to(values.dtype), values.shape)
-    return (values * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (values * mask).sum() / torch.clamp(
+        mesh.all_reduce_count(mask.sum()), min=1.0)
 
 
 def heatmap_mse_loss(pred, target, mask=None, target_weight=None):
@@ -83,7 +89,8 @@ def cross_ratio_loss(pred_coords, target_cr: float = TARGET_CROSS_RATIO,
                    > distance_threshold).to(pred_coords.dtype)
         if mask is not None:
             edge_ok = edge_ok * mask[:, None].to(edge_ok.dtype)
-    return (per_edge * edge_ok).sum() / torch.clamp(edge_ok.sum(), min=1.0)
+    return (per_edge * edge_ok).sum() / torch.clamp(
+        mesh.all_reduce_count(edge_ok.sum()), min=1.0)
 
 
 class CompositeLossConfig:

@@ -37,6 +37,9 @@ def _imports(tree):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 15
+    for new in ("parallel/mesh.py", "io/train_ckpt.py",
+                "tools/dryrun_multigpu.py"):
+        assert os.path.join(ROOT, "egonet_tpu_torch", new) in files, new
     bad = []
     for path in files:
         with open(path) as f:
@@ -72,4 +75,14 @@ def test_entry_point_defaults_to_cuda_and_raises_without_it(monkeypatch):
         train_lifting.main(cfgs=train_lifting_config())
     with pytest.raises(RuntimeError, match="CUDA"):
         train_igrs.main(cfgs=train_igrs_config())
+    # the data-parallel dry run and process-group start: the card's, and
+    # an error without one (before any rank is spawned)
+    from egonet_tpu_torch.parallel import mesh
+    from egonet_tpu_torch.tools import dryrun_multigpu
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multigpu.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multigpu.main(["--nproc", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.init_from_env()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -301,7 +301,11 @@ def test_queue_bound_rejects_overload(small_model, rng):
         assert r.event.is_set() and r.error is None
 
 
-def test_serve_cli_boots_and_refuses_devices(small_model):
+def test_serve_cli_boots_and_refuses_devices(small_model, monkeypatch):
+    """The CLI boots on the CPU; ``--devices 2`` is refused on a CPU config
+    and when fewer cards are visible (here none), and, given a mesh,
+    boots a server whose /healthz lists the mesh's devices."""
+    from egonet_tpu_torch.parallel import mesh
     from egonet_tpu_torch.tools import serve
     cfg = dict(_cfg(), device="cpu", pre_trained=False)
     srv = serve.main(["--port", "0", "--warmup", "0"], cfgs=cfg,
@@ -312,8 +316,25 @@ def test_serve_cli_boots_and_refuses_devices(small_model):
             assert json.loads(r.read())["platform"] == "cpu"
     finally:
         srv.stop()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(SystemExit):
         serve.main(["--devices", "2"], cfgs=cfg, block=False)
+    card_cfg = dict(_cfg(), pre_trained=False)          # device: the card
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit):
+        serve.main(["--devices", "2"], cfgs=card_cfg, block=False)
+    with pytest.raises(ValueError, match="0 CUDA device"):
+        mesh.make_mesh(2)
+    monkeypatch.setattr(mesh, "make_mesh",
+                        lambda n: mesh.DataMesh(["cpu"] * n))
+    srv = serve.main(["--port", "0", "--warmup", "0", "--devices", "2"],
+                     cfgs=card_cfg, block=False)
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/healthz", timeout=30) as r:
+            assert json.loads(r.read())["mesh"] == ["cpu", "cpu"]
+        assert len(srv.batcher.model.mesh) == 2
+    finally:
+        srv.stop()
 
 
 def test_bench_serve_line(tmp_path):

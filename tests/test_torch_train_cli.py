@@ -241,20 +241,30 @@ def test_warm_start_off_or_missing():
 
 
 def test_cli_from_yaml_and_unported_options(root, tmp_path):
-    """``--cfg <yaml>`` runs the lifter CLI; exact resume and a .msgpack
-    resume raise NotImplementedError naming the queue."""
+    """``--cfg <yaml>`` runs the lifter CLI; ``exact_resume: true`` keeps
+    the full state under ``<checkpoints>/orbax`` in both CLIs, and a run
+    of as many epochs as the latest step resumes there and trains none
+    (tests/test_torch_resume.py holds 2 + 1 epochs against 3); a .msgpack
+    resume raises NotImplementedError naming the format."""
     cfg = _lift_cfg(root[0], str(tmp_path))
     cfg["training_settings"].update(total_epochs=1, lft_aug_times=2)
     path = tmp_path / "lift.yml"
     path.write_text(yaml.safe_dump(cfg))
     out = train_lifting.main(["--cfg", str(path)])
     assert os.path.exists(os.path.join(out["ckpt_dir"], "L.pth"))
-    for main, make in ((train_lifting.main, _lift_cfg),
-                       (train_igrs.main, _igr_cfg)):
-        bad = make(root[0], str(tmp_path))
-        bad["training_settings"]["exact_resume"] = True
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(cfgs=bad)
+    for main, make, name in ((train_lifting.main, _lift_cfg, "L.pth"),
+                             (train_igrs.main, _igr_cfg, "HC.pth")):
+        resume = make(root[0], str(tmp_path / name))
+        resume["training_settings"].update(exact_resume=True,
+                                           total_epochs=1, lft_aug_times=2)
+        first = main(cfgs=resume)
+        assert os.listdir(os.path.join(first["ckpt_dir"], "orbax")) == ["1"]
+        before = load_torch_state_dict(os.path.join(first["ckpt_dir"], name))
+        again = main(cfgs=resume)
+        assert again["history"] == []
+        after = load_torch_state_dict(os.path.join(again["ckpt_dir"], name))
+        for k, v in before.items():
+            assert torch.equal(torch.as_tensor(v), torch.as_tensor(after[k]))
     bad = _igr_cfg(root[0], str(tmp_path))
     resume = tmp_path / "HC.msgpack"
     resume.write_bytes(b"")
