@@ -139,6 +139,20 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    cuda:0 over gloo (nccl refuses two ranks on one card), every leg (the
    W48 legs at full width), then one rank over nccl (the legs that hold
    a group against one process skipped as such).
+9g. Gate phase (``gate`` line; ``tests/torch_gate.py``, the pipeline of
+   tests/test_torch_closed_loop_gate.py): both kernels held against their
+   plain version at the gate model's block shapes (GATE_SHAPES, batch 32
+   and 5; timed at 32); the JAX gate's world of 40 keypoint-drawn frames;
+   each committed donor probed on the card against its sidecar; the car,
+   W32-family pedestrian and native models fine-tuned from their donors
+   on the card (fp32) and both 'R3d+T' lifters trained there; then each
+   family's inference CLI on both paths, on the CPU in fp32 (the CPU leg
+   of these weights) and on the card in bf16, the HRNet families through
+   the tiled kernel and through the stencil: each kernel's launches per
+   HRNet forward equal the blocks the model routes to it (6: the width-8
+   blocks run unfused), every leg's AOS / AP_R11 ratio reaches the JAX
+   gate's floor with its detection AP at the protocol ceiling, printed
+   with the gap to the CPU leg and |d ry| against it.
 10. Prints one JSON line per kernel shape and phase, both kernels' earlier
    times per forward (past figures from PERF.md, labelled so), the
    {"kernels": [...]} line (every number in it measured or, for
@@ -146,7 +160,9 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    row under ``shapes`` and the W32 forward's sums under
    ``w32_forward``, the serve phase's launches and micro-batches under
    ``serve_launches`` / ``served_batches``, the exported programs'
-   launches per call, the mesh phase's launches under ``mesh_launches``),
+   launches per call, the mesh phase's launches under ``mesh_launches``,
+   the gate phase's under ``gate_launches`` and its shapes under
+   ``gate_shapes``),
    each phase's seconds (``phase_s``), the run's seconds, the card line,
    and last {"ok": true, "device": {...}}.
 
@@ -2214,6 +2230,190 @@ def resume_phase(torch, np, root, out, card):
     return row
 
 
+# the gate phase (tests/torch_gate.py): its shrunk HRNet (8/16/32/64 at a
+# 64x64 input, one block a branch) fuses the blocks of width 16, 32 and 64
+# on maps of 8, 4 and 2 (the width-8 ones run unfused); both kernels are
+# checked there at a full bucket and at an odd batch
+GATE_SHAPES = ((16, 8), (32, 4), (64, 2))
+GATE_ODD_BATCH = 5
+
+
+def _gate_kernel_rows(torch, fb, st):
+    """Both kernels at the gate's block shapes: held against the plain
+    version (one bf16 step) at batch BATCH and GATE_ODD_BATCH, timed
+    beside it and the cuDNN convs at BATCH.  {kernel name: [rows]}."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rows = {"fused_basic_block": [], "fused_basic_block_stencil": []}
+    for c, h in GATE_SHAPES:
+        for batch in (GATE_ODD_BATCH, BATCH):
+            x, folded = _block_inputs(torch, fb, g, c, h, batch)
+            ref = fb.fused_basic_block_reference(x, *folded)
+            for name, fn, launcher in (
+                    ("fused_basic_block", fb.fused_basic_block,
+                     lambda: fb._default_launcher(c)),
+                    ("fused_basic_block_stencil",
+                     st.fused_basic_block_stencil,
+                     lambda: st._default_launcher(st.plan_for(c)))):
+                y = fn(x, *folded)
+                torch.cuda.synchronize()
+                err = (y.float() - ref.float()).abs().max().item()
+                torch.testing.assert_close(y.float(), ref.float(),
+                                           atol=5e-2, rtol=2e-2)
+                if batch != BATCH:
+                    continue
+                module = fb if name == "fused_basic_block" else st
+                default = launcher()
+                ops_ms, bytes_ms = _bound(c, h, h)
+                rows[name].append({
+                    "shape": {"C": c, "H": h, "W": h, "B": batch},
+                    "max_abs_err": err,
+                    "ms": _time_ms(torch, lambda: module._launch(
+                        x, *folded, *default)),
+                    "plain_ms": _time_ms(
+                        torch, lambda: fb.fused_basic_block_reference(
+                            x, *folded), iters=5),
+                    "library_ms": _time_ms(
+                        torch, _library_block(torch, x, *folded)),
+                    "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                    "bound_ms": max(ops_ms, bytes_ms)})
+    return rows
+
+
+def _count_forwards(hrnet_cls):
+    """Wrap the HRNet's forward to count its calls; returns (counter, the
+    original forward to restore)."""
+    calls = [0]
+    real = hrnet_cls.forward
+
+    def counted(self, *args, **kwargs):
+        calls[0] += 1
+        return real(self, *args, **kwargs)
+    hrnet_cls.forward = counted
+    return calls, real
+
+
+def _sub_ry(np, sub_dir):
+    """rot_y of every line of a submission, in file and line order."""
+    out = []
+    data = os.path.join(sub_dir, "data")
+    for n in sorted(os.listdir(data)):
+        with open(os.path.join(data, n)) as f:
+            out += [float(ln.split()[14]) for ln in f if ln.strip()]
+    return np.array(out)
+
+
+def gate_phase(torch, np, fb, st, card):
+    """The closed-loop gate on the card (``tests/torch_gate.py``, the
+    pipeline of tests/test_torch_closed_loop_gate.py): the JAX gate's world
+    of 40 frames, each donor probed through the port's forward on the card
+    against its sidecar, the car, pedestrian (W32 family) and native models
+    fine-tuned on the card in fp32 and the two 'R3d+T' lifters trained
+    there; then each family's inference CLI on both paths on the CPU in
+    fp32 (the CPU leg of these weights) and on the card in bf16: the HRNet
+    families through the tiled kernel and through the stencil (counts set
+    to 0 before each run and read after it: each kernel's launches per
+    forward equal the blocks the model routes to it, the width-8 blocks
+    running unfused), the native family (no fused block) once.  Every
+    leg's AOS / AP_R11 ratio against the protocol ceiling must reach the
+    JAX gate's floor and its detection AP the ceiling; printed with the
+    gap to the CPU leg and the median / max |d ry| against it.  Both
+    kernels are first held against their plain version at the gate's block
+    shapes."""
+    import importlib.util
+    from egonet_tpu_torch.models import hrnet
+    # by path: a host may have another package named "tests" installed
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_gate.py")
+    spec = importlib.util.spec_from_file_location("egonet_torch_gate", path)
+    tg = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tg)
+    t_phase = time.perf_counter()
+    kernel_rows = _gate_kernel_rows(torch, fb, st)
+    row = {"card": card, "kernel_rows": kernel_rows}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root, pred_dir = tg.write_world(tmp)
+        row["world_s"] = time.perf_counter() - t0
+        label_dir = os.path.join(root, "training", "label_2")
+        t0 = time.perf_counter()
+        row["donor_px"] = tg.check_donors(root, "cuda")
+        row["donor_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        trained = tg.train_all(root, tmp, "cuda")
+        row["train_s"] = time.perf_counter() - t0
+        row["fine_tune_loss"] = {t: v["loss"] for t, v in trained.items()}
+        names = sorted(os.listdir(os.path.join(root, "training", "label_2")))
+        names = names[len(names) // 2:]                 # the val split
+        ceil = tg.ceiling(label_dir, pred_dir, names,
+                          os.path.join(tmp, "ceiling"))
+        row["ceiling_ap_r11"] = {
+            cls: ceil[(f"{cls}_detection", "AP_R11")][0]
+            for cls in ("car", "pedestrian")}
+        runs, launches, subs = {}, {}, {}
+        for tag in ("car", "ped", "native"):
+            hr = tg.BACKBONE[tag] == "hrnet"
+            variants = [("cpu_fp32", "cpu", False, None)] + (
+                [("tiled", "cuda", True, "0"), ("stencil", "cuda", True, "1")]
+                if hr else [("bf16", "cuda", True, None)])
+            for name, device, bf16, stencil in variants:
+                key = f"{tag}/{name}"
+                calls, real = _count_forwards(hrnet.PoseHighResolutionNet)
+                fb.fused_basic_block.launches = 0
+                st.fused_basic_block_stencil.launches = 0
+                t0 = time.perf_counter()
+                try:
+                    gt, sub = tg.run_inference(
+                        root, pred_dir, trained, tag,
+                        os.path.join(tmp, f"out_{tag}_{name}"), device,
+                        bf16=bf16, stencil=stencil)
+                finally:
+                    hrnet.PoseHighResolutionNet.forward = real
+                seconds = time.perf_counter() - t0
+                got = {"tiled": fb.fused_basic_block.launches,
+                       "stencil": st.fused_basic_block_stencil.launches}
+                want = {"tiled": 0, "stencil": 0}
+                if name in want:
+                    per = tg.fused_blocks_per_forward(tag, name == "stencil")
+                    want[name] = per * calls[0]
+                    assert per > 0 and calls[0] > 0, (key, per, calls)
+                    launches[key] = {"launches": got[name],
+                                     "forwards": calls[0],
+                                     "per_forward": got[name] / calls[0]}
+                assert got == want, (key, got, want)
+                legs = {}
+                for leg, ltag, path, cls, floor in tg.LEGS:
+                    if ltag != tag:
+                        continue
+                    ap, aos, c, ratio = tg.leg(
+                        tg.score(label_dir, gt if path == "gt" else sub),
+                        ceil, cls)
+                    legs[leg] = {"ap_r11": ap, "aos_r11": aos,
+                                 "ratio": ratio, "floor": floor,
+                                 "ap_at_ceiling": abs(ap - c) < 0.2}
+                runs[key] = {"legs": legs, "seconds": seconds}
+                subs[key] = _sub_ry(np, sub)
+        for key, run in runs.items():
+            tag, name = key.split("/")
+            if name == "cpu_fp32":
+                continue
+            cpu = runs[f"{tag}/cpu_fp32"]["legs"]
+            for leg, r in run["legs"].items():
+                r["gap_to_cpu"] = r["ratio"] - cpu[leg]["ratio"]
+            d = np.degrees(np.abs(np.angle(np.exp(
+                1j * (subs[key] - subs[f"{tag}/cpu_fp32"])))))
+            run["d_ry_vs_cpu_deg"] = {"median": float(np.median(d)),
+                                      "max": float(d.max())}
+    row["runs"] = runs
+    row["launches"] = launches
+    row["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"gate": row}), flush=True)
+    for key, run in runs.items():
+        for leg, r in run["legs"].items():
+            assert r["ap_at_ceiling"], (key, leg, r)
+            assert r["ratio"] >= r["floor"], (key, leg, r)
+    return row
+
+
 def _ped_entry(rows, launches):
     """The W32 forward's share of a kernel's entry: per-shape rows summed
     over one W32 pedestrian forward at 32 crops."""
@@ -2337,6 +2537,8 @@ def main() -> int:
     meshed = timed("mesh", mesh_phase, torch, np, fb, st, annot, card)
     torch.cuda.empty_cache()
     timed("dp", dp_phase, card)
+    torch.cuda.empty_cache()
+    gate = timed("gate", gate_phase, torch, np, fb, st, card)
 
     assert sum(PER_FORWARD.values()) == result["launches_per_forward"]
     print(json.dumps({"earlier": EARLIER}), flush=True)
@@ -2373,6 +2575,13 @@ def main() -> int:
         entry["mesh_launches_per_shard"] = meshed[path]["launches_per_shard"]
         if path == "tiled":
             entry["mesh_serve_launches"] = meshed["serve"]["launches"]
+        # the gate phase: launches of its bf16 inference runs (per run and
+        # per forward) and the kernel at the gate's block shapes
+        entry["gate_launches"] = {k: v for k, v in gate["launches"].items()
+                                  if k.endswith("/" + path)}
+        entry["gate_shapes"] = _shapes(gate["kernel_rows"][name])
+        entry["max_abs_err"] = max(entry["max_abs_err"], max(
+            r["max_abs_err"] for r in gate["kernel_rows"][name]))
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"phase_s": phase_s}), flush=True)

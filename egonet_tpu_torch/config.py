@@ -334,13 +334,39 @@ def native_demo_config() -> dict:
     return cfg
 
 
-def load_config(path: str) -> dict:
-    """Read a reference-schema YAML config (needs PyYAML)."""
+# keys every loaded config has (the JAX package's ``config._DEFAULTS``)
+_DEFAULTS = {
+    "visualize": False,
+    "batch_to_show": 1_000_000,
+    "use_gpu": False,          # unused; kept for the reference's YAML
+}
+
+
+def load_config(path: str, overrides: dict | None = None) -> dict:
+    """Read a reference-schema YAML config (needs PyYAML), fill the keys of
+    ``_DEFAULTS`` it lacks, and lay ``overrides`` over it
+    (:func:`merge_config`)."""
     import yaml
     with open(path, "r") as f:
         cfgs = yaml.safe_load(f)
     cfgs["config_path"] = path
+    for key, val in _DEFAULTS.items():
+        cfgs.setdefault(key, val)
+    if overrides:
+        cfgs = merge_config(cfgs, overrides)
     return cfgs
+
+
+def merge_config(base: dict, overrides: dict) -> dict:
+    """A deep copy of ``base`` with ``overrides`` laid over it: nested
+    dicts merge key by key, any other value replaces."""
+    out = copy.deepcopy(base)
+    for k, v in overrides.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = merge_config(out[k], v)
+        else:
+            out[k] = v
+    return out
 
 
 def str2bool(value) -> bool:

@@ -93,3 +93,13 @@ def crop_scale_divisor(cfgs: dict | None) -> float:
     the original pipeline, and checkpoints depend on it)."""
     hm = (cfgs or {}).get("heatmapModel") or {}
     return 1.0 if hm.get("add_xy") else 255.0
+
+
+def compute_cr_indices() -> np.ndarray:
+    """``CR_INDICES`` derived from the interpolation table: for each of the
+    12 box edges, (parent, its two interpolated points, child) (the
+    reference's construction, car_instance.py:99-119)."""
+    num_base_pts = 9
+    parents, children = INTERP_DICT["bbox12"]
+    return np.array([[parents[i], num_base_pts + i, num_base_pts + 12 + i,
+                      children[i]] for i in range(12)])

@@ -109,3 +109,8 @@ class ImageStore:
     def clear_ram(self) -> None:
         """Drop the RAM tier (cold-cache measurements)."""
         self._lru = LRUImageCache(self._lru.max_bytes)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of decoded frames the RAM tier holds."""
+        return self._lru.nbytes

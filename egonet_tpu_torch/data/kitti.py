@@ -360,6 +360,37 @@ class KITTIDataset:
             rec["boxes"] = rec["bbox_2d"]
         return rec
 
+    def show_annot(self, image_name: str, save_dir: str,
+                   label_path: str | None = None) -> tuple:
+        """Save ``<name>_original.png`` and ``<name>_annotated.png``, the
+        latter with the projected ground-truth cuboids drawn over the frame
+        (the reference's car_instance.show_annot, :1012-1050, in
+        wireframes); returns both paths.  Needs matplotlib."""
+        from egonet_tpu_torch.data.image_store import decode_image
+        from egonet_tpu_torch.visualization import points as vp
+        plt = vp.pyplot()
+        rec = self.read_single_file(
+            image_name, label_path or self.paths.label_path(image_name),
+            fieldnames=FIELDNAMES, add_gt=True)
+        if rec is None:
+            raise ValueError(f"no annotations for {image_name}")
+        img = decode_image(self.paths.image_path(image_name))
+        os.makedirs(save_dir, exist_ok=True)
+        paths = []
+        for suffix, annotate in (("original", False), ("annotated", True)):
+            fig = plt.figure(figsize=(11.3, 9))
+            ax = fig.add_subplot(111)
+            ax.imshow(img)
+            if annotate:
+                for kp in rec["kpts"]:
+                    ax.plot(kp[1:9, 0], kp[1:9, 1], "ro", markersize=2)
+                    vp.plot_2d_bbox(ax, kp[1:9, :2])
+            out = pjoin(save_dir, f"{image_name}_{suffix}.png")
+            fig.savefig(out, dpi=100, bbox_inches="tight")
+            plt.close(fig)
+            paths.append(out)
+        return tuple(paths)
+
     def read_predictions(self, pred_dir: str) -> dict:
         """Read external-detector txts (label format + score column).  Raw
         detector boxes are used only on the test split; elsewhere the box

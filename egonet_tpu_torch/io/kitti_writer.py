@@ -57,6 +57,14 @@ def save_txt_file(img_path: str, pred_str: str, save_dir: str) -> str:
     return save_path
 
 
+def apolloscape_str(roll, pitch, yaw, x, y, z, score) -> str:
+    """An ApolloScape submission line: pitch, yaw, roll, x, y, z and score
+    at 3 decimals (the reference's format.py:11-23)."""
+    return ("{pitch:.3f} {yaw:.3f} {roll:.3f} {x:.3f} {y:.3f} {z:.3f} "
+            "{score:.3f}").format(pitch=pitch, yaw=yaw, roll=roll,
+                                  x=x, y=y, z=z, score=score)
+
+
 def generate_empty_files(output_dir: str, label_dir: str) -> int:
     """Write an empty ``<output_dir>/data/<name>.txt`` for every
     ``<label_dir>/<name>.txt`` that has no prediction file (a test-split

@@ -407,12 +407,16 @@ class PoseHighResolutionNet(CachedInference):
 
     # ---------------- inference preparation ----------------
 
-    def _fusable_blocks(self):
+    def _fusable_blocks(self, stencil: bool = False):
+        """The stride-1 identity branch blocks whose width the chosen
+        kernel takes (the stencil's with ``stencil``, else the tiled
+        one's); the others run unfused on every device."""
+        takes = (fused_block_stencil if stencil else fused_block).takes
         for s in (2, 3, 4):
             for mod in getattr(self, f"stage{s}"):
                 for branch in mod.branches:
                     for blk in branch:
-                        if blk.fusable:
+                        if blk.fusable and takes(blk.conv2.out_channels):
                             yield blk
 
     def _merge_groups(self):
@@ -443,7 +447,7 @@ class PoseHighResolutionNet(CachedInference):
         cache["folded"] = {}
         cache["stencil"] = fused_block_stencil.stencil_enabled(self.stencil)
         if self.dtype == torch.bfloat16:
-            for blk in self._fusable_blocks():
+            for blk in self._fusable_blocks(cache["stencil"]):
                 cache["folded"][blk] = (
                     *fused_block.fold_conv_bn(blk.conv1.weight, blk.bn1),
                     *fused_block.fold_conv_bn(blk.conv2.weight, blk.bn2))

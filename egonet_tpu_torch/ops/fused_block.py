@@ -256,6 +256,13 @@ def tile_fits(c: int, tile) -> bool:
     return True
 
 
+def takes(c: int) -> bool:
+    """Whether the kernel serves channel width ``c`` with its default
+    plan: a multiple of 16, at most ``_MAX_C``, a tile that fits.  The
+    HRNet sends a block of another width unfused."""
+    return c % 16 == 0 and 16 <= c <= _MAX_C and tile_fits(c, None)
+
+
 def library(plans=None):
     """The kernel library as ``_build`` takes it, (name, source, prelude):
     ``csrc/fused_basic_block.cu`` instantiating the (MT, NT, KS) variants
@@ -265,7 +272,7 @@ def library(plans=None):
     default = plans is None
     if default:
         plans = [plan_for(c) for c in range(16, _MAX_C + 1, 16)
-                 if tile_fits(c, None)]
+                 if takes(c)]
     variants = sorted({(p.mt, p.nt, p.ks) for p in plans})
     prelude = "#define EGONET_VARIANTS " + " ".join(
         f"EGONET_VARIANT({mt}, {nt}, {ks})" for mt, nt, ks in variants) + "\n"

@@ -268,10 +268,16 @@ def _variant(plan: StencilPlan):
     return plan.mt1, plan.mt2, plan.nt, plan.kc, 1 - plan.resident
 
 
+def takes(c: int) -> bool:
+    """Whether the kernel serves channel width ``c`` with its default
+    plan: a multiple of 16, at most ``_MAX_C``, a tile that fits.  The
+    HRNet sends a block of another width unfused."""
+    return c % 16 == 0 and 16 <= c <= _MAX_C and tile_fits(c, None)
+
+
 def _default_plans():
-    """The default plan of every width up to ``_MAX_C`` that has one."""
-    return [plan_for(c) for c in range(16, _MAX_C + 1, 16)
-            if tile_fits(c, None)]
+    """The default plan of every width the kernel takes."""
+    return [plan_for(c) for c in range(16, _MAX_C + 1, 16) if takes(c)]
 
 
 def library(plans=None):

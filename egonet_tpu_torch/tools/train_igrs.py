@@ -1,5 +1,5 @@
 """Stage-2 training CLI of the PyTorch port: the HRNet keypoint (IGR)
-model -> ``HC.pth`` (port of ``tools/train_igrs.py``).
+model -> ``HC.pth`` and ``HC.msgpack`` (port of ``tools/train_igrs.py``).
 
     python -m egonet_tpu_torch.tools.train_igrs --cfg <yaml>
     torchrun --nproc_per_node=N -m egonet_tpu_torch.tools.train_igrs --cfg <yaml>
@@ -9,10 +9,12 @@ On a host without PyYAML, call ``main(cfgs=<dict>)`` (e.g.
 Trains on CUDA unless the config says ``device: cpu``, in fp32 (TF32 off)
 unless it says ``bf16: true`` (the JAX CLI's default; the inference
 config's default is bf16).  Starts from ``training_settings.resume`` (a
-``.pth``) where it exists, else from ``heatmapModel.pretrained`` filtered
-by ``extra.pretrained_layers``, else from the seeded initialization;
-prints the model summary; fits; writes ``HC.pth`` (and snapshots, debug
-grids) under ``<dirs.output>/<dataset name>/checkpoints/``.
+``.pth``, or a flax ``.msgpack`` such as the JAX CLI's ``HC.msgpack``)
+where it exists, else from ``heatmapModel.pretrained`` filtered by
+``extra.pretrained_layers``, else from the seeded initialization; prints
+the model summary; fits; writes ``HC.pth`` and ``HC.msgpack`` (and
+snapshots, debug grids) under ``<dirs.output>/<dataset
+name>/checkpoints/``.
 
 Under torchrun (``WORLD_SIZE`` > 1) every rank joins the process group
 (``parallel/mesh.init_from_env``: rank ``LOCAL_RANK`` on card
@@ -84,7 +86,8 @@ def _train(cfgs: dict) -> dict:
     logger, out_dir = get_logger(cfgs)
 
     from egonet_tpu_torch.io import checkpoint
-    from egonet_tpu_torch.io.weights import load_torch_state_dict
+    from egonet_tpu_torch.io.weights import (from_jax_variables,
+                                            load_torch_state_dict)
     from egonet_tpu_torch.models.init import numpy_init
     from egonet_tpu_torch.train.igrs import IGRTrainer
     from egonet_tpu_torch.utils.summary import model_summary, \
@@ -104,12 +107,10 @@ def _train(cfgs: dict) -> dict:
     resume_path = settings.get("resume")
     if resume_path and isinstance(resume_path, str) \
             and os.path.exists(resume_path):
-        if resume_path.endswith(".msgpack"):
-            raise NotImplementedError(
-                "flax .msgpack checkpoints are not read by the port "
-                "(ROADMAP queue 1); resume from a .pth")
         logger.info(f"resuming from {resume_path}")
-        variables = load_torch_state_dict(resume_path)
+        variables = (from_jax_variables(checkpoint.load_variables(
+            resume_path)) if resume_path.endswith(".msgpack")
+            else load_torch_state_dict(resume_path))
     if variables is None:
         variables = checkpoint.warm_start_variables(
             cfgs, numpy_init(trainer.model, 0), logger=logger)
@@ -141,9 +142,11 @@ def _train(cfgs: dict) -> dict:
             manager.close()
     logger.info(f"training done: {history[-1] if history else 'no steps'}")
     if mesh.is_main():
+        checkpoint.save_variables(os.path.join(ckpt_out, "HC.msgpack"),
+                                  state.model)
         checkpoint.save_torch_state_dict(os.path.join(ckpt_out, "HC.pth"),
                                          state.model)
-        logger.info(f"saved HC.pth under {ckpt_out}")
+        logger.info(f"saved HC.pth/HC.msgpack under {ckpt_out}")
     return {"ckpt_dir": ckpt_out, "history": history,
             "params": summary["params"], "flops": summary["flops"],
             "checkpoints": manager.saves if manager is not None else []}

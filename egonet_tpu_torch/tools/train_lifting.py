@@ -1,5 +1,5 @@
-"""Stage-1 training CLI of the PyTorch port: the FC lifter -> ``L.pth`` +
-``LS.npy`` (port of ``tools/train_lifting.py``).
+"""Stage-1 training CLI of the PyTorch port: the FC lifter -> ``L.pth``,
+``L.msgpack`` (flax's) and ``LS.npy`` (port of ``tools/train_lifting.py``).
 
     python -m egonet_tpu_torch.tools.train_lifting --cfg <yaml>
     torchrun --nproc_per_node=N -m egonet_tpu_torch.tools.train_lifting --cfg <yaml>
@@ -71,11 +71,13 @@ def _train(cfgs: dict) -> dict:
             state, valid_set,
             visualize_dir=out_dir if cfgs.get("visualize") else None)
 
+    checkpoint.save_variables(os.path.join(ckpt_dir, "L.msgpack"),
+                              state.model)
     checkpoint.save_torch_state_dict(os.path.join(ckpt_dir, "L.pth"),
                                      state.model)
     checkpoint.save_lifter_stats(os.path.join(ckpt_dir, "LS.npy"),
                                  train_set.statistics)
-    logger.info(f"saved L.pth/LS.npy under {ckpt_dir}")
+    logger.info(f"saved L.pth/L.msgpack/LS.npy under {ckpt_dir}")
     return {"ckpt_dir": ckpt_dir, "history": history,
             "train_pairs": len(train_set.input),
             "valid_pairs": len(valid_set.input)}

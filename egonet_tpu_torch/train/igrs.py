@@ -251,8 +251,10 @@ class IGRTrainer(CropTrainer):
         return evaluator
 
     def save_snapshot(self, state, path_prefix: str):
-        """Write ``<path_prefix>.pth``."""
+        """Write ``<path_prefix>.msgpack`` (flax's) and ``.pth``; returns
+        the ``.pth`` path."""
         from egonet_tpu_torch.io import checkpoint
+        checkpoint.save_variables(path_prefix + ".msgpack", state.model)
         return checkpoint.save_torch_state_dict(path_prefix + ".pth",
                                                 state.model)
 

@@ -178,13 +178,9 @@ class LiftingTrainer:
     def evaluate(self, state, valid_set, metrics=None,
                  visualize_dir: str | None = None, sample_num: int = 9):
         """Metric-registry evaluation with un-normalized outputs
-        (``testing_settings.unnormalize``).  ``visualize_dir`` (the
-        pred-vs-GT cuboid figure) is not ported yet."""
+        (``testing_settings.unnormalize``).  ``visualize_dir`` saves the
+        pred-vs-GT cuboid figure there as ``lifting_eval.png``."""
         from egonet_tpu_torch.train.metrics import Evaluator
-        if visualize_dir:
-            raise NotImplementedError(
-                "the lifting figure needs visualization/overlays.py, not "
-                "ported yet (ROADMAP queue 1, item 5)")
         metrics = metrics or self.cfgs.get("training_settings", {}).get(
             "eval_metrics", ["RError3D"])
         num_joints = int(self.cfgs.get("heatmapModel", {})
@@ -192,14 +188,26 @@ class LiftingTrainer:
         evaluator = Evaluator(metrics, cfgs=self.cfgs, num_joints=num_joints)
         preds = self.predict(state, valid_set.input)
         gts = valid_set.output
+        inputs = valid_set.input
         if self.cfgs.get("testing_settings", {}).get("unnormalize", True) \
                 and valid_set.statistics is not None:
             stats = valid_set.statistics
             preds = preds * stats["std_out"] + stats["mean_out"]
             gts = gts * stats["std_out"] + stats["mean_out"]
+            inputs = inputs * stats["std_in"] + stats["mean_in"]
         evaluator.update(preds, ground_truth=gts, logger=self.logger)
         if self.logger:
             evaluator.report(self.logger)
+        if visualize_dir and len(preds):
+            import os
+            from egonet_tpu_torch.visualization.overlays import (
+                visualize_lifting_results)
+            os.makedirs(visualize_dir, exist_ok=True)
+            path = visualize_lifting_results(
+                inputs, preds, target=gts, sample_num=sample_num,
+                save_path=os.path.join(visualize_dir, "lifting_eval.png"))
+            if self.logger:
+                self.logger.info(f"wrote {path}")
         return evaluator
 
     def predict(self, state, inputs, batch_size: int = 4096):

@@ -1,6 +1,6 @@
-"""File + console logger and output directory (copy of ``get_logger`` from
+"""File + console logger and output directory (copy of
 ``egonet_tpu/utils/logger.py``): output directory ``<dirs.output>/<dataset
-name>/``, log file ``<name>_<timestamp>.log``."""
+name>/``, log file ``<name>_<timestamp>.log``; ``AverageMeter``."""
 
 from __future__ import annotations
 
@@ -34,3 +34,23 @@ def get_logger(cfgs: dict):
     logger.addHandler(ch)
     logger.propagate = False
     return logger, final_output_dir
+
+
+class AverageMeter:
+    """Running average of a value seen ``n`` at a time (the reference's
+    libs/common/utils.py:149-183)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n: int = 1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / self.count if self.count else 0.0

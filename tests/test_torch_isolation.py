@@ -1,4 +1,5 @@
-"""The port stands alone: no module of egonet_tpu_torch/ (nor chip_smoke.py)
+"""The port stands alone: no module of egonet_tpu_torch/ (nor chip_smoke.py,
+nor tests/torch_gate.py, which it runs)
 imports jax, flax, optax, orbax or egonet_tpu, and yaml / cv2 / triton /
 matplotlib are imported only inside functions (GPU hosts may lack yaml,
 cv2 and matplotlib; triton must not be needed to import the package).
@@ -17,7 +18,9 @@ LAZY_ONLY = ("yaml", "cv2", "triton", "matplotlib")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    # chip_smoke.py and what it runs from tests/ on the card
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tests", "torch_gate.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "egonet_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return files

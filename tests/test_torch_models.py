@@ -16,7 +16,7 @@ from egonet_tpu.config import default_demo_config
 from egonet_tpu.models.fc_lifter import build_fc_model as jax_fc
 from egonet_tpu.models.hrnet import build_hrnet as jax_hrnet
 from egonet_tpu.models.initialization import numpy_init as jax_init
-from egonet_tpu_torch.config import demo_config, load_config
+from egonet_tpu_torch.config import _DEFAULTS, demo_config, load_config
 from egonet_tpu_torch.io.weights import from_jax_variables
 from egonet_tpu_torch.models import hrnet as th
 from egonet_tpu_torch.models.fc_lifter import build_fc_model
@@ -35,6 +35,8 @@ def test_demo_config_equals_yaml():
         assert demo_config() == yaml.safe_load(f)
     loaded = load_config(DEMO_YML)
     assert loaded.pop("config_path") == DEMO_YML
+    # the keys every loaded config gets (the JAX loader's _DEFAULTS)
+    assert {k: loaded.pop(k) for k in _DEFAULTS} == _DEFAULTS
     assert loaded == demo_config()
 
 
@@ -99,9 +101,10 @@ def test_hrnet_fp32_matches(shrunk, rng):
 
 
 def test_hrnet_bf16_fused_blocks(shrunk, rng, monkeypatch):
-    """bf16 eval sends every stride-1 branch block through the fused block
-    (its plain version on the CPU, BN folded) and stays close to the
-    unfused bf16 path and to the JAX bf16 model."""
+    """bf16 eval sends every stride-1 branch block whose width the kernel
+    takes (16/32/64 here; the width-8 blocks run unfused) through the
+    fused block (its plain version on the CPU, BN folded) and stays close
+    to the unfused bf16 path and to the JAX bf16 model."""
     cfg, _, jvars, _ = shrunk
     net = th.build_hrnet(cfg, dtype=torch.bfloat16).eval()
     net.load_state_dict(from_jax_variables(jvars))
@@ -115,8 +118,10 @@ def test_hrnet_bf16_fused_blocks(shrunk, rng, monkeypatch):
         n_fused = len(calls)
         net.fuse_blocks = False
         _, unfused = net(x.permute(0, 3, 1, 2))
-    # shrunk config: 1 block per branch, branches 2 + 3 + 4
-    assert n_fused == 9 and len(calls) == 9
+    # shrunk config: 1 block per branch, branches 2 + 3 + 4, less the
+    # three width-8 ones
+    assert n_fused == 6 and len(calls) == 6
+    assert all(shape[3] % 16 == 0 for shape in calls)
     jb = jax_hrnet(cfg, dtype=jnp.bfloat16)
     _, jcoords = jb.apply(jvars, jnp.asarray(x.numpy()), train=False)
     np.testing.assert_allclose(fused.numpy(), unfused.numpy(), atol=0.02)

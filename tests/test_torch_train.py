@@ -191,7 +191,7 @@ def test_lifter_with_dropout_learns_like_jax(root):
     assert 1 / 1.5 <= ratio <= 1.5, (th[-1], jh[-1])
 
 
-def test_lifter_eval_dropout_and_evaluate(root):
+def test_lifter_eval_dropout_and_evaluate(root, tmp_path):
     cfg = _lift_cfg(root, dropout=0.5)
     train, valid = tk.prepare_data(cfg)
     trainer = tlift.LiftingTrainer(cfg, device="cpu")
@@ -204,8 +204,54 @@ def test_lifter_eval_dropout_and_evaluate(root):
     assert np.isfinite(a).all() and not np.array_equal(a, b)
     ev = trainer.evaluate(state, valid, metrics=["RError3D"])
     assert np.isfinite(ev.metrics[0].rT.mean).all()
-    with pytest.raises(NotImplementedError):
-        trainer.evaluate(state, valid, visualize_dir="figs")
+    figs = os.path.join(tmp_path, "figs")
+    trainer.evaluate(state, valid, visualize_dir=figs)
+    assert os.path.getsize(os.path.join(figs, "lifting_eval.png")) > 0
+
+
+def test_lifter_evaluate_writes_the_figure_of_jax(root, tmp_path,
+                                                 monkeypatch):
+    """``visualize_dir`` writes ``lifting_eval.png`` from the un-normalised
+    inputs, predictions and targets, as the JAX trainer does: the
+    figure's inputs and targets equal the JAX trainer's bit for bit, its
+    predictions (fp32, same initial weights) within 1e-5 relative."""
+    from egonet_tpu.train import lifting as jlift
+    from egonet_tpu.visualization import overlays as jov
+    from egonet_tpu_torch.visualization import overlays as tov
+    cfg = _lift_cfg(root)
+    train, valid = tk.prepare_data(cfg)
+    seen = {}
+    real = tov.visualize_lifting_results
+
+    def capture(tag, draw):
+        def fn(data_2d, prediction, target=None, sample_num=None, **kw):
+            seen[tag] = (np.asarray(data_2d), np.asarray(prediction),
+                         np.asarray(target), sample_num)
+            return draw(data_2d, prediction, target=target,
+                        sample_num=sample_num, **kw) if draw else \
+                kw["save_path"]
+        return fn
+
+    monkeypatch.setattr(tov, "visualize_lifting_results",
+                        capture("port", real))
+    monkeypatch.setattr(jov, "visualize_lifting_results",
+                        capture("jax", None))
+    trainer = tlift.LiftingTrainer(cfg, device="cpu")
+    out = str(tmp_path / "figs")
+    trainer.evaluate(trainer.init_state(0), valid, visualize_dir=out)
+    png = os.path.join(out, "lifting_eval.png")
+    assert os.path.getsize(png) > 0
+    with open(png, "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+    jt = jlift.LiftingTrainer(cfg)
+    jt.evaluate(jt.init_state(0), valid, visualize_dir=str(tmp_path / "j"))
+    (ti, tp, tg, tn), (ji, jp, jg, jn) = seen["port"], seen["jax"]
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(tg, jg)
+    assert tn == jn == 9 and tp.shape == jp.shape
+    assert _rel(tp, jp) <= 1e-5, _rel(tp, jp)
+    # un-normalised: the figure's inputs are screen pixels, not z-scores
+    assert np.abs(ti).max() > 50
 
 
 # ---------------------------------------------------------------- IGR

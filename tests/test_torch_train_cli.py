@@ -71,7 +71,9 @@ def trained(root, tmp_path_factory):
     """Both CLIs run once; returns (ckpt dir, lifter summary, IGR
     summary)."""
     out = str(tmp_path_factory.mktemp("train_out"))
-    lift = train_lifting.main(cfgs=_lift_cfg(root[0], out))
+    lift_cfg = _lift_cfg(root[0], out)
+    lift_cfg["visualize"] = True              # the figure, then the files
+    lift = train_lifting.main(cfgs=lift_cfg)
     igr = train_igrs.main(cfgs=_igr_cfg(root[0], out))
     assert lift["ckpt_dir"] == igr["ckpt_dir"]
     return lift["ckpt_dir"], lift, igr
@@ -88,6 +90,14 @@ def test_lifting_cli_writes_files_with_the_jax_statistics(root, trained):
     sd = load_torch_state_dict(os.path.join(ckpt, "L.pth"))
     assert sd["w1.weight"].shape == (1024, 66)
     assert sd["w2.weight"].shape == (96, 1024)
+    # visualize: True wrote the evaluation figure before the files, and
+    # L.msgpack holds L.pth's tensors as flax reads them
+    assert os.path.getsize(os.path.join(os.path.dirname(ckpt),
+                                        "lifting_eval.png")) > 0
+    flax_tree = jckpt.load_variables(os.path.join(ckpt, "L.msgpack"))
+    for k, v in tc.flax_to_torch(flax_tree).items():
+        if not k.endswith("num_batches_tracked"):
+            np.testing.assert_array_equal(np.asarray(v), sd[k].numpy(), k)
 
 
 def test_igr_cli_writes_hc_and_debug_grids(trained):
@@ -244,8 +254,10 @@ def test_cli_from_yaml_and_unported_options(root, tmp_path):
     """``--cfg <yaml>`` runs the lifter CLI; ``exact_resume: true`` keeps
     the full state under ``<checkpoints>/orbax`` in both CLIs, and a run
     of as many epochs as the latest step resumes there and trains none
-    (tests/test_torch_resume.py holds 2 + 1 epochs against 3); a .msgpack
-    resume raises NotImplementedError naming the format."""
+    (tests/test_torch_resume.py holds 2 + 1 epochs against 3); a flax
+    .msgpack resume starts from its weights (at lr 0 the parameters come
+    out as they went in; tests/test_torch_msgpack.py resumes from a
+    JAX-written one)."""
     cfg = _lift_cfg(root[0], str(tmp_path))
     cfg["training_settings"].update(total_epochs=1, lft_aug_times=2)
     path = tmp_path / "lift.yml"
@@ -265,12 +277,16 @@ def test_cli_from_yaml_and_unported_options(root, tmp_path):
         after = load_torch_state_dict(os.path.join(again["ckpt_dir"], name))
         for k, v in before.items():
             assert torch.equal(torch.as_tensor(v), torch.as_tensor(after[k]))
-    bad = _igr_cfg(root[0], str(tmp_path))
-    resume = tmp_path / "HC.msgpack"
-    resume.write_bytes(b"")
-    bad["training_settings"]["resume"] = str(resume)
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        train_igrs.main(cfgs=bad)
+    flax = _igr_cfg(root[0], str(tmp_path / "flax"))
+    flax["optimizer"]["lr"] = 0.0
+    flax["training_settings"].update(total_epochs=1, resume=(
+        tckpt.save_variables(str(tmp_path / "HC.msgpack"), before)))
+    out = train_igrs.main(cfgs=flax)
+    resumed = load_torch_state_dict(os.path.join(out["ckpt_dir"], "HC.pth"))
+    for k, v in before.items():
+        if not k.endswith(("running_mean", "running_var",
+                           "num_batches_tracked")):
+            assert torch.equal(resumed[k], v), k
 
 
 def test_profile_model_train_splits_one_step_by_stage(tmp_path):
