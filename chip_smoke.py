@@ -153,6 +153,16 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    blocks run unfused), every leg's AOS / AP_R11 ratio reaches the JAX
    gate's floor with its detection AP at the protocol ceiling, printed
    with the gap to the CPU leg and |d ry| against it.
+9h. Scratch phase (``scratch`` line): the port trains from scratch on the
+   card with its two tools at reduced lengths, their own asserts intact:
+   ``tools/make_gate_artifacts`` for both gate donor families
+   (SCRATCH_DONOR_ARGS: 10 epochs on a world of 108 frames), each donor
+   probed on the gate's world (its sidecar's val px), then
+   ``tools/record_native_fullwidth`` (SCRATCH_NATIVE_ARGS: the shipped
+   full-width PoseNetTPU for 20 epochs on 48 frames, its lifter, the
+   inference CLI in fp32 and the evaluator: AP / AOS R11 easy).  No fused
+   kernel runs there (the donors train in fp32; PoseNetTPU has no
+   BasicBlock).
 10. Prints one JSON line per kernel shape and phase, both kernels' earlier
    times per forward (past figures from PERF.md, labelled so), the
    {"kernels": [...]} line (every number in it measured or, for
@@ -168,6 +178,10 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
 Any failure raises (non-zero exit).
+
+``python3 chip_smoke.py --gate-donors DIR`` runs only the gate phase (9g),
+on the donors ``python -m egonet_tpu_torch.tools.make_gate_artifacts --out
+DIR`` trained, and ends with the same card and ``{"ok": true, ...}`` lines.
 """
 
 import copy
@@ -2302,11 +2316,13 @@ def _sub_ry(np, sub_dir):
     return np.array(out)
 
 
-def gate_phase(torch, np, fb, st, card):
+def gate_phase(torch, np, fb, st, card, donors=None):
     """The closed-loop gate on the card (``tests/torch_gate.py``, the
     pipeline of tests/test_torch_closed_loop_gate.py): the JAX gate's world
-    of 40 frames, each donor probed through the port's forward on the card
-    against its sidecar, the car, pedestrian (W32 family) and native models
+    of 40 frames (the port's copy, ``synthetic_world.make_gate_fixture``),
+    each donor (``donors``: {family: .pth}, else the committed ones) probed
+    through the port's forward on the card against its sidecar, the car,
+    pedestrian (W32 family) and native models
     fine-tuned on the card in fp32 and the two 'R3d+T' lifters trained
     there; then each family's inference CLI on both paths on the CPU in
     fp32 (the CPU leg of these weights) and on the card in bf16: the HRNet
@@ -2321,25 +2337,27 @@ def gate_phase(torch, np, fb, st, card):
     shapes."""
     import importlib.util
     from egonet_tpu_torch.models import hrnet
+    from egonet_tpu_torch.tools import synthetic_world as sw
     # by path: a host may have another package named "tests" installed
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "torch_gate.py")
     spec = importlib.util.spec_from_file_location("egonet_torch_gate", path)
     tg = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tg)
+    donors = donors or tg.DONORS
     t_phase = time.perf_counter()
     kernel_rows = _gate_kernel_rows(torch, fb, st)
-    row = {"card": card, "kernel_rows": kernel_rows}
+    row = {"card": card, "kernel_rows": kernel_rows, "donors": donors}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        root, pred_dir = tg.write_world(tmp)
+        root, pred_dir = sw.make_gate_fixture(tmp)
         row["world_s"] = time.perf_counter() - t0
         label_dir = os.path.join(root, "training", "label_2")
         t0 = time.perf_counter()
-        row["donor_px"] = tg.check_donors(root, "cuda")
+        row["donor_px"] = tg.check_donors(root, "cuda", donors)
         row["donor_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        trained = tg.train_all(root, tmp, "cuda")
+        trained = tg.train_all(root, tmp, "cuda", donors)
         row["train_s"] = time.perf_counter() - t0
         row["fine_tune_loss"] = {t: v["loss"] for t, v in trained.items()}
         names = sorted(os.listdir(os.path.join(root, "training", "label_2")))
@@ -2414,6 +2432,68 @@ def gate_phase(torch, np, fb, st, card):
     return row
 
 
+# the scratch phase: both from-scratch tools at lengths at which their own
+# loss asserts (the last epoch's loss under half the first's) hold, the
+# donors on a world of 108 frames (9 steps an epoch; the full length's
+# milestones at the same share of the epochs), the full-width PoseNetTPU on
+# 48 (4 steps an epoch)
+SCRATCH_DONOR_ARGS = ["--epochs", "10", "--images", "108", "--milestones",
+                      "6", "9"]
+SCRATCH_NATIVE_ARGS = ["--epochs", "20", "--images", "48"]
+
+
+def scratch_phase(card):
+    """The port's training from scratch on the card: ``make_gate_artifacts``
+    for both donor families at SCRATCH_DONOR_ARGS (each donor then probed
+    on the gate's world, ``write_sidecar``), then
+    ``record_native_fullwidth`` at SCRATCH_NATIVE_ARGS (the shipped
+    full-width PoseNetTPU through training, checkpoint, the inference CLI
+    and the evaluator).  The tools' own asserts decide; the row holds each
+    family's losses, val px, sidecar px and seconds and the full-width
+    tool's line."""
+    from egonet_tpu_torch.tools import make_gate_artifacts as mga
+    from egonet_tpu_torch.tools import record_native_fullwidth as rnf
+    t_phase = time.perf_counter()
+    row = {"card": card, "donor_args": SCRATCH_DONOR_ARGS,
+           "native_args": SCRATCH_NATIVE_ARGS}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        made = mga.main(SCRATCH_DONOR_ARGS + ["--out", tmp])
+        row["donors_s"] = time.perf_counter() - t0
+    row["donors"] = {
+        fam: {"first_loss": r["losses"][0], "last_loss": r["losses"][-1],
+              "val_px": r["val_px"], "train_s": r["seconds"],
+              "sidecar": {k: v for k, v in r["sidecar"].items()
+                          if k.startswith("val_px")}}
+        for fam, r in made.items()}
+    t0 = time.perf_counter()
+    row["native"] = rnf.main(SCRATCH_NATIVE_ARGS)
+    row["native_s"] = time.perf_counter() - t0
+    row["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"scratch": row}), flush=True)
+    return row
+
+
+def gate_only(torch, np, fb, st, card, donor_dir):
+    """``--gate-donors DIR``: the gate phase alone, on the donors that
+    ``make_gate_artifacts --out DIR`` wrote (both kernels built first)."""
+    from egonet_tpu_torch.ops import _build
+    from egonet_tpu_torch.tools.make_gate_artifacts import DONORS
+    _build.build([fb.library(), st.library()])
+    donors = {fam: os.path.join(donor_dir, name) for fam, name in DONORS}
+    gate_phase(torch, np, fb, st, card, donors)
+    _print_ok(torch, card)
+    return 0
+
+
+def _print_ok(torch, card):
+    """The run's last two lines: the card, then {"ok": true, ...}."""
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def _ped_entry(rows, launches):
     """The W32 forward's share of a kernel's entry: per-shape rows summed
     over one W32 pedestrian forward at 32 crops."""
@@ -2434,7 +2514,14 @@ def _shapes(rows):
         for r in rows]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="the port's run on a card")
+    ap.add_argument("--gate-donors", metavar="DIR",
+                    help="run only the gate phase, on the donors in DIR "
+                         "(python -m egonet_tpu_torch.tools."
+                         "make_gate_artifacts --out DIR)")
+    args = ap.parse_args(argv)
     import torch
     here = os.path.dirname(os.path.abspath(__file__))
     if not torch.cuda.is_available():
@@ -2458,6 +2545,8 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}; CUDA {torch.version.cuda}",
           flush=True)
     full_precision_fp32()
+    if args.gate_donors:
+        return gate_only(torch, np, fb, st, card, args.gate_donors)
     sweep = sweep_plans(fb)
     sweep_lib = fb.library([p for plans in sweep.values() for _, p in plans])
     ssweep = stencil_sweep(st)
@@ -2539,6 +2628,8 @@ def main() -> int:
     timed("dp", dp_phase, card)
     torch.cuda.empty_cache()
     gate = timed("gate", gate_phase, torch, np, fb, st, card)
+    torch.cuda.empty_cache()
+    timed("scratch", scratch_phase, card)
 
     assert sum(PER_FORWARD.values()) == result["launches_per_forward"]
     print(json.dumps({"earlier": EARLIER}), flush=True)
@@ -2586,10 +2677,7 @@ def main() -> int:
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"phase_s": phase_s}), flush=True)
     print(json.dumps({"run_s": time.perf_counter() - t_run}), flush=True)
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    _print_ok(torch, card)
     return 0
 
 

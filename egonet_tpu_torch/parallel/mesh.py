@@ -200,14 +200,30 @@ def barrier() -> None:
         dist.barrier()
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks; the backward sums the ranks' output gradients
+    (every rank's output depends on every rank's input)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM)
+        return grad
+
+
 def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     """The sum of ``t`` over every rank, differentiable (the gradient of
     each rank's input is the sum of the ranks' output gradients); ``t``
     itself without a group."""
     if not active():
         return t
-    from torch.distributed.nn.functional import all_reduce
-    return all_reduce(t)
+    return _AllReduceSum.apply(t)
 
 
 def all_reduce_count(t: torch.Tensor) -> torch.Tensor:

@@ -158,13 +158,14 @@ def test_gate_combined_multiclass_eval(gate_world, tmp_path):
 
 
 def test_card_world_equals_the_fixture(tmp_path):
-    """``torch_gate.write_world`` (what the card's gate phase draws, without
-    cv2 or the JAX package) writes the fixture's files: every label,
-    calibration, split and detector txt byte for byte, every frame pixel
-    for pixel."""
+    """The port's ``synthetic_world.make_gate_fixture`` (what the card's
+    gate phase draws, without cv2 or the JAX package) writes the fixture's
+    files: every label, calibration, split and detector txt byte for byte,
+    every frame pixel for pixel."""
     from egonet_tpu_torch.data.png import decode
+    from egonet_tpu_torch.tools import synthetic_world as sw
     root, pred = fixtures.make_gate_fixture(tmp_path / "fixture")
-    oroot, opred = tg.write_world(tmp_path / "card")
+    oroot, opred = sw.make_gate_fixture(tmp_path / "card")
     train, otrain = (os.path.join(r, "training") for r in (root, oroot))
     for sub in ("label_2", "calib", "ImageSets"):
         names = sorted(os.listdir(os.path.join(train, sub)))

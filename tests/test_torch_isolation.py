@@ -1,6 +1,7 @@
 """The port stands alone: no module of egonet_tpu_torch/ (nor chip_smoke.py,
 nor tests/torch_gate.py, which it runs)
-imports jax, flax, optax, orbax or egonet_tpu, and yaml / cv2 / triton /
+imports jax, flax, optax, orbax, egonet_tpu or anything of ``tests`` (a
+host may have another package of that name), and yaml / cv2 / triton /
 matplotlib are imported only inside functions (GPU hosts may lack yaml,
 cv2 and matplotlib; triton must not be needed to import the package).
 Checked on the AST: this interpreter may import jax at start-up, so
@@ -13,7 +14,8 @@ import pytest
 import torch
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "egonet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "egonet_tpu",
+             "tests")
 LAZY_ONLY = ("yaml", "cv2", "triton", "matplotlib")
 
 
@@ -41,12 +43,19 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 15
     for new in ("parallel/mesh.py", "io/train_ckpt.py",
-                "tools/dryrun_multigpu.py"):
+                "tools/dryrun_multigpu.py", "tools/synthetic_world.py",
+                "tools/make_gate_artifacts.py",
+                "tools/record_native_fullwidth.py"):
         assert os.path.join(ROOT, "egonet_tpu_torch", new) in files, new
     bad = []
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
+        # nor loads the JAX package's test fixture by its path
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                    and os.path.basename(node.value) == "fixtures.py":
+                bad.append(f"{path}: loads {node.value}")
         for name, top_level in _imports(tree):
             root = name.split(".")[0]
             if root in FORBIDDEN:
@@ -88,4 +97,19 @@ def test_entry_point_defaults_to_cuda_and_raises_without_it(monkeypatch):
         dryrun_multigpu.main(["--nproc", "2"])
     with pytest.raises(RuntimeError, match="CUDA"):
         mesh.init_from_env()
+    # the from-scratch tools: before any world is drawn or donor read
+    from egonet_tpu_torch.tools import (make_gate_artifacts,
+                                        record_native_fullwidth,
+                                        synthetic_world)
+
+    def no_data(*args, **kwargs):
+        raise AssertionError("read or wrote data before resolving the card")
+    for name in ("make_kitti_root", "make_gate_fixture",
+                 "measure_donor_zero_shot"):
+        monkeypatch.setattr(synthetic_world, name, no_data)
+    for argv in ([], ["--sidecar-only"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_gate_artifacts.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        record_native_fullwidth.main([])
     assert resolve_device("cpu") == torch.device("cpu")

@@ -1,25 +1,23 @@
 """The closed-loop gate's pipeline on the port (no jax: ``chip_smoke.py``'s
 ``gate`` phase runs it on the card, ``tests/test_torch_closed_loop_gate.py``
 on the CPU).  It is the JAX gate's (``tests/test_closed_loop_gate.py``) with
-the port in every stage: fine-tune a shrunk heatmap model from a committed
-donor (every layer warm-started, the donor's batch-norm statistics exported
+the port in every stage: fine-tune a shrunk heatmap model from a donor
+(every layer warm-started, the donor's batch-norm statistics exported
 with the fine-tuned parameters), train an 'R3d+T' lifter, run the port's
 inference CLI on the GT-box and submission paths, and score with the C++
 evaluator (``make -C tools/kitti-eval``) or, where it cannot build, the
 port's Python evaluator.  The recipes, the world and the floors are the JAX
-gate's: ``fixtures.gate_shrink``, ``gate_train_stanza`` at
-``GATE_FINETUNE_LR``, the seed-7 world of 40 images, and the AOS / AP
+gate's: the port's copies of them in ``egonet_tpu_torch.tools.
+synthetic_world`` (``gate_shrink``, ``gate_train_stanza`` at
+``GATE_FINETUNE_LR``, the seed-7 world of 40 images) and the AOS / AP
 ratios below (the CPU test holds them equal to the JAX gate's).
 
-:func:`write_world` draws that world without cv2 or the JAX package: the
-fixture's scenes and label lines, the port's cuboid, and discs rasterized
-as ``cv2.circle`` fills them (the CPU test holds every file to
-``fixtures.make_gate_fixture``'s).
+The donors default to the committed ones (``tests/data/gate_*.pth``, made
+by the JAX package); ``donors=`` takes others of the same format, such as
+those ``python -m egonet_tpu_torch.tools.make_gate_artifacts`` trains.
 """
 
-import colorsys
 import copy
-import importlib.util
 import os
 import re
 import shutil
@@ -28,23 +26,12 @@ import subprocess
 import numpy as np
 import torch
 
+from egonet_tpu_torch.tools import synthetic_world as sw
+from egonet_tpu_torch.tools.make_gate_artifacts import DONORS as DONOR_FILES
+
 HERE = os.path.dirname(os.path.abspath(__file__))
-
-
-def load_by_path(name, path):
-    """A module from its file: a host may have another package named
-    ``tests`` installed, which ``from tests import ...`` would find."""
-    spec = importlib.util.spec_from_file_location(name, path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-fixtures = load_by_path("egonet_gate_fixtures",
-                        os.path.join(HERE, "fixtures.py"))
 DATA = os.path.join(HERE, "data")
-HRNET_DONOR = os.path.join(DATA, "gate_hrnet_car.pth")
-NATIVE_DONOR = os.path.join(DATA, "gate_native_car.pth")
+DONORS = {fam: os.path.join(DATA, name) for fam, name in DONOR_FILES}
 
 CAR_EPOCHS = 6
 PED_EPOCHS = 8
@@ -58,12 +45,10 @@ CAR_GT_RATIO = 0.93
 PED_GT_RATIO = 0.80
 SIDECAR_TOL = lambda px: px * 1.3 + 2.0  # noqa: E731
 
-# (tag, config, classes, epochs, max instances a batch, donor)
-JOBS = (("car", "train_igrs_config", ("Car",), CAR_EPOCHS, 12, HRNET_DONOR),
-        ("ped", "train_igrs_ped_config", ("Pedestrian",), PED_EPOCHS, 6,
-         HRNET_DONOR),
-        ("native", "train_igrs_config", ("Car",), NATIVE_EPOCHS, 12,
-         NATIVE_DONOR))
+# (tag, config, classes, epochs, max instances a batch)
+JOBS = (("car", "train_igrs_config", ("Car",), CAR_EPOCHS, 12),
+        ("ped", "train_igrs_ped_config", ("Pedestrian",), PED_EPOCHS, 6),
+        ("native", "train_igrs_config", ("Car",), NATIVE_EPOCHS, 12))
 BACKBONE = {"car": "hrnet", "ped": "hrnet", "native": "tpu_native"}
 # (leg, tag, path, class, floor): what each leg of the gate asserts
 LEGS = (("car submission", "car", "sub", "car", CAR_AOS_RATIO),
@@ -73,159 +58,35 @@ LEGS = (("car submission", "car", "sub", "car", CAR_AOS_RATIO),
         ("native submission", "native", "sub", "car", NATIVE_AOS_RATIO))
 
 
-# ---------------------------------------------------------------- world
-
-def _disc(img, cx, cy, r, color):
-    """A filled disc as ``cv2.circle(img, (cx, cy), r, color, -1)`` draws
-    it (8-connected, no shift: OpenCV's integer midpoint walk, each step
-    filling four horizontal spans, clipped to the image)."""
-    h, w = img.shape[:2]
-    err, dx, dy, plus, minus = 0, r, 0, 1, 2 * r - 1
-    while dx >= dy:
-        for y, x1, x2 in ((cy - dy, cx - dx, cx + dx),
-                          (cy + dy, cx - dx, cx + dx),
-                          (cy - dx, cx - dy, cx + dy),
-                          (cy + dx, cx - dy, cx + dy)):
-            if 0 <= y < h:
-                img[y, max(x1, 0):min(x2, w - 1) + 1] = color
-        dy += 1
-        err += plus
-        plus += 2
-        mask = -1 if err > 0 else 0
-        err -= minus & mask
-        dx += mask
-        minus -= mask & 2
-
-
-def draw_keypoints(img, recs):
-    """``fixtures.draw_instance_keypoints`` with the port's cuboid: each
-    instance's 33 projected keypoints as discs, one hue per index, radius
-    scaled with the box height."""
-    from egonet_tpu_torch.data import cuboid as cb
-    shift = (np.linalg.inv(fixtures.K_FIXED) @ fixtures.T_SHIFT).reshape(3, 1)
-    for _cls, _t, _o, _a, bbox, (h, w, l), loc, ry in recs:
-        r = int(np.clip(round((bbox[3] - bbox[1]) / 24.0), 2, 8))
-        pts = cb.construct_box_3d(l, h, w)
-        placed = cb.place_cuboid(pts, np.array([*loc, 0.0, ry, 0.0]), shift)
-        proj = cb.project_3d_to_2d(placed, fixtures.K_FIXED)
-        for k in range(proj.shape[1]):
-            u, v = int(round(proj[0, k])), int(round(proj[1, k]))
-            if 0 <= u < fixtures.IMG_W and 0 <= v < fixtures.IMG_H:
-                col = tuple(int(255 * c) for c in
-                            colorsys.hsv_to_rgb(k / 33.0, 1.0, 1.0))
-                _disc(img, u, v, r, col)
-    return img
-
-
-def write_world(tmpdir):
-    """``fixtures.make_gate_fixture``'s KITTI root and detector txts under
-    ``tmpdir``: the same scenes, label, calibration, split and prediction
-    files, and frames of the same pixels (PNGs from the port's writer; the
-    fixture's cv2 stores its drawing's channels as BGR, so they are
-    reversed here).  Returns (root, pred_dir)."""
-    from egonet_tpu_torch.data import png
-    rng = np.random.RandomState(fixtures.GATE_SEED)
-    scenes = [fixtures.random_scene(rng, n_cars=2, n_peds=1)
-              for _ in range(fixtures.GATE_N_IMAGES)]
-    root = os.path.join(str(tmpdir), "KITTI")
-    train = os.path.join(root, "training")
-    for sub in ("image_2", "label_2", "calib", "ImageSets"):
-        os.makedirs(os.path.join(train, sub), exist_ok=True)
-    pred_dir = os.path.join(str(tmpdir), "preds")
-    os.makedirs(pred_dir, exist_ok=True)
-    names = [f"{i:06d}" for i in range(len(scenes))]
-    p_line = "P2: " + " ".join(str(v) for v in np.hstack(
-        [fixtures.K_FIXED, fixtures.T_SHIFT.reshape(3, 1)]).reshape(-1))
-    for name, recs in zip(names, scenes):
-        img = np.full((fixtures.IMG_H, fixtures.IMG_W, 3), 60, np.uint8)
-        draw_keypoints(img, recs)
-        with open(os.path.join(train, "image_2", name + ".png"), "wb") as f:
-            f.write(png.encode(np.ascontiguousarray(img[..., ::-1])))
-        with open(os.path.join(train, "label_2", name + ".txt"), "w") as f:
-            f.write("\n".join(fixtures._label_line(r) for r in recs) + "\n")
-        with open(os.path.join(train, "calib", name + ".txt"), "w") as f:
-            f.write("P0: " + " ".join(["0"] * 12) + "\n")
-            f.write("P1: " + " ".join(["0"] * 12) + "\n")
-            f.write(p_line + "\n")
-            f.write("P3: " + " ".join(["0"] * 12) + "\n")
-        with open(os.path.join(pred_dir, name + ".txt"), "w") as f:
-            f.write("\n".join(fixtures._label_line(r, score=0.9 - 0.1 * j)
-                              for j, r in enumerate(recs)) + "\n")
-    half = len(names) // 2
-    for split, part in (("train", names[:half]), ("val", names[half:]),
-                        ("trainval", names)):
-        with open(os.path.join(train, "ImageSets", split + ".txt"), "w") as f:
-            f.write("\n".join(part) + "\n")
-    return root, pred_dir
-
-
 # ---------------------------------------------------------------- stages
 
-def _igr_cfg(name, root, classes, backbone, donor):
-    from egonet_tpu_torch import config as tcfg
-    cfg = getattr(tcfg, name)()
-    cfg["dataset"]["root"] = root
-    cfg["dataset"]["detect_classes"] = list(classes)
-    fixtures.gate_shrink(backbone)(cfg)
-    hm = cfg["heatmapModel"]
-    hm["pretrained"] = donor
-    hm["init_weights"] = True
-    # the donor's readout trunk is class-agnostic: warm-start every layer
-    hm["extra"]["pretrained_layers"] = ["*"]
-    return cfg
-
-
-def _warm_trainer(cfg, device, steps_per_epoch=1):
-    """An IGRTrainer on ``device`` warm-started from the config's donor;
-    returns (trainer, state, the warm-start state_dict)."""
-    from egonet_tpu_torch.io import checkpoint
-    from egonet_tpu_torch.models.init import numpy_init
-    from egonet_tpu_torch.train.igrs import IGRTrainer
-    trainer = IGRTrainer(cfg, steps_per_epoch=steps_per_epoch, device=device)
-    variables = checkpoint.warm_start_variables(
-        cfg, numpy_init(trainer.model, 0))
-    assert variables is not None, cfg["heatmapModel"]["pretrained"]
-    return trainer, trainer.init_state(0, variables=variables), variables
-
-
-def donor_px(backbone, donor, root, classes, device):
-    """Zero-shot val px (JointDistance2DSIP mean over ``classes``) of a
-    donor through the port's forward: ``fixtures.measure_donor_zero_shot``
-    on the port."""
-    from egonet_tpu_torch.data import kitti
-    cfg = _igr_cfg("train_igrs_config", root, classes, backbone, donor)
-    fixtures.gate_train_stanza(cfg)
-    trainer, state, _ = _warm_trainer(cfg, device)
-    records = kitti.KITTIDataset(cfg, "valid").records
-    return float(trainer.evaluate(state, records).metrics[0].mean)
-
-
-def check_donors(root, device):
+def check_donors(root, device, donors=DONORS):
     """Failure mode 1 of the JAX gate: each donor's zero-shot val px on
-    this world against its sidecar.  Returns {donor/class: (px, recorded)}
-    and raises naming a stale donor."""
+    this world against its sidecar (``<donor>.json`` beside it).  Returns
+    {donor/class: (px, recorded)} and raises naming a stale donor."""
     import json
     out = {}
-    for backbone, donor in (("hrnet", HRNET_DONOR),
-                            ("tpu_native", NATIVE_DONOR)):
+    for backbone, donor in donors.items():
         with open(donor[:-len(".pth")] + ".json") as f:
             side = json.load(f)
         probes = [("val_px", ("Car",))]
         if "val_px_ped" in side:
             probes.append(("val_px_ped", ("Pedestrian",)))
         for key, classes in probes:
-            px = donor_px(backbone, donor, root, classes, device)
+            px = sw.measure_donor_zero_shot(backbone, donor, root, classes,
+                                            device)
             name = f"{os.path.basename(donor)}/{classes[0]}"
             out[name] = (px, side[key])
             assert px <= SIDECAR_TOL(side[key]), (
                 f"STALE DONOR {name}: zero-shot val px {px:.2f} vs recorded "
-                f"{side[key]:.2f} (regenerate via "
-                f"tools/make_gate_artifacts.py)")
+                f"{side[key]:.2f} (regenerate via python -m "
+                f"egonet_tpu_torch.tools.make_gate_artifacts)")
     return out
 
 
-def fine_tune(root, tag, ck_dir, device):
-    """Fine-tune the ``tag`` job's shrunk model from its donor with the
+def fine_tune(root, tag, ck_dir, device, donors=DONORS):
+    """Fine-tune the ``tag`` job's shrunk model from its family's donor in
+    ``donors`` with the
     port's IGRTrainer (cross-ratio from epoch 1) and write ``HC.pth``: the
     fine-tuned parameters with the donor's batch-norm statistics (the JAX
     gate's export: ~24 steps re-estimate them too noisily for the
@@ -233,14 +94,15 @@ def fine_tune(root, tag, ck_dir, device):
     from egonet_tpu_torch.data import kitti
     from egonet_tpu_torch.data.loader import IGRBatchLoader
     from egonet_tpu_torch.io import checkpoint
-    _, name, classes, epochs, max_instances, donor = \
+    _, name, classes, epochs, max_instances = \
         next(j for j in JOBS if j[0] == tag)
-    cfg = _igr_cfg(name, root, classes, BACKBONE[tag], donor)
-    fixtures.gate_train_stanza(cfg, lr=fixtures.GATE_FINETUNE_LR)
+    cfg = sw.igr_config(name, root, classes, BACKBONE[tag],
+                        donors[BACKBONE[tag]])
+    sw.gate_train_stanza(cfg, lr=sw.GATE_FINETUNE_LR)
     ds = kitti.KITTIDataset(cfg, "train")
     loader = IGRBatchLoader(ds.records, cfg, train=True,
                             max_instances=max_instances, seed=0)
-    trainer, state, variables = _warm_trainer(cfg, device, len(loader))
+    trainer, state, variables = sw.warm_trainer(cfg, device, len(loader))
     first = last = None
     for ep in range(epochs):
         for batch in loader.epoch():
@@ -293,14 +155,15 @@ def train_lifter(root, classes, ck_dir, device):
     return cfg["FCModel"]
 
 
-def train_all(root, tmp, device):
-    """Every job's HC.pth and its class's lifter (the native job reuses the
-    Car lifter).  Returns {tag: {"ck", "fc", "loss": (first, last)}}."""
+def train_all(root, tmp, device, donors=DONORS):
+    """Every job's HC.pth, fine-tuned from ``donors``, and its class's
+    lifter (the native job reuses the Car lifter).  Returns {tag: {"ck",
+    "fc", "loss": (first, last)}}."""
     out, lifters = {}, {}
     for tag, _, classes, *_ in JOBS:
         ck = os.path.join(str(tmp), f"ckpt_{tag}")
         os.makedirs(ck, exist_ok=True)
-        loss = fine_tune(root, tag, ck, device)
+        loss = fine_tune(root, tag, ck, device, donors)
         if classes not in lifters:
             lifters[classes] = (train_lifter(root, classes, ck, device), ck)
         else:
@@ -324,7 +187,7 @@ def run_inference(root, pred_dir, trained, tag, out_dir, device,
     cfg = tcfg.demo_config()
     cfg["dataset"]["root"] = root
     cfg["dataset"]["detect_classes"] = list(classes)
-    fixtures.gate_shrink(BACKBONE[tag])(cfg)
+    sw.gate_shrink(BACKBONE[tag])(cfg)
     cfg["heatmapModel"]["init_weights"] = False
     cfg["FCModel"] = copy.deepcopy(trained[tag]["fc"])
     cfg["dirs"] = {"output": out_dir, "ckpt": trained[tag]["ck"],
@@ -422,7 +285,7 @@ def fused_blocks_per_forward(tag, stencil):
         return 0
     from egonet_tpu_torch import config as tcfg
     from egonet_tpu_torch.models.hrnet import build_hrnet
-    cfg = fixtures.gate_shrink("hrnet")(tcfg.demo_config())
+    cfg = sw.gate_shrink("hrnet")(tcfg.demo_config())
     with torch.device("meta"):
         net = build_hrnet(cfg, dtype=torch.bfloat16)
     return sum(1 for _ in net._fusable_blocks(stencil))
