@@ -3,10 +3,13 @@
 NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
 
 1. Prints the card (name, power limit), torch and CUDA versions, and builds
-   every CUDA kernel of the port from csrc/ with nvcc (one nvcc per source,
-   all started together); prints each kernel variant's registers and
-   spills, and SASS opcode counts of both libraries with an excerpt of the
-   tiled kernel's K loop (cuobjdump -sass).
+   every CUDA kernel of the port from csrc/ with nvcc and both operator
+   libraries (csrc/egonet_ops.cpp, csrc/egonet_ops_cuda.cpp: the fused
+   blocks as C++ torch operators) with the host's c++, one compiler per
+   source, all started together (``build`` line: each library's seconds);
+   prints each kernel variant's registers and spills, and SASS opcode
+   counts of both kernel libraries with an excerpt of the tiled kernel's K
+   loop (cuobjdump -sass).
 2. Kernel phase, tiled fused BasicBlock: at each W48 shape (C, H) in
    {(48, 64), (96, 32), (192, 16), (384, 8)}, batch 32, random folded
    weights and BN stats (and, checked only, at four odd shapes), the
@@ -109,13 +112,18 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    bar) and one pass of the native family through the same server.
 9c. Export phase (``export`` line; ``io/export.py``): buckets 16 and 128
    of the W48 ``_core`` exported on the card (weight-agnostic .pt2, 16
-   canvases of 384x1280), loaded, the live weights laid in: 104 fused-op
-   nodes per graph, 104 launches per call, outputs within one bf16 step
-   of the live program's on kpts and 1e-3 rad on the angles; a second
-   seeded weight set through the same artifact against a live model built
-   with it; artifact bytes, export and load seconds, ms per call of both
-   programs (CUDA events, 10 calls after 3), and the custom op's host
-   microseconds per call beside a direct launch's.
+   canvases of 384x1280, the operator and kernel libraries copied beside
+   them), loaded, the live weights laid in: 104 fused-op nodes per graph,
+   104 launches per call, outputs within one bf16 step of the live
+   program's on kpts and 1e-3 rad on the angles; the artifact directory
+   run in a fresh interpreter that imports torch and io/export.py only
+   (``fresh_interpreter``: each bucket bit-equal to live, 104 launches
+   per call read from the directory's C++ counts, no ops or models module
+   loaded); a second seeded weight set through the same artifact against
+   a live model built with it; artifact bytes, export and load seconds,
+   ms per call of both programs (CUDA events, 10 calls after 3), and a
+   kernel call's host microseconds through the wrapper, through the C++
+   operator alone and by a direct launch (``op_host_us``).
 9d. Resume phase (``resume`` line, on the training directory): the IGR
    CLI on the native config in bf16 with ``exact_resume`` (batches of 4
    frames, 6 steps an epoch), 2 epochs and then the same command to 3
@@ -422,8 +430,8 @@ def kernel_phase(torch, fb, sweep, sweep_lib):
                                        rtol=2e-2)
         ops_ms, bytes_ms = _bound(c, h, h)
         # ms: the default plan's kernel launched directly (device time);
-        # op_ms: through the custom op, whose host dispatch can outlast a
-        # small launch
+        # op_ms: through the wrapper and the C++ operator, whose host
+        # dispatch can outlast a small launch
         default = fb._default_launcher(c)
         row = {"shape": {"C": c, "H": h, "W": h, "B": BATCH},
                "tile": list(fb.tile_for(c)),
@@ -1878,55 +1886,143 @@ def _export_gap(torch, np, got, live):
     return kpts_steps, float(ang.max())
 
 
-def export_phase(torch, np, fb, st, annot, card):
+# the export phase's fresh interpreter: torch and io/export.py only, run
+# from the artifact directory (argv: repo root, artifact dir, data dir)
+FRESH_EXPORT = r"""
+import ctypes, json, os, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from egonet_tpu_torch.io import export
+out, data = sys.argv[2], sys.argv[3]
+torch.backends.cudnn.allow_tf32 = False         # as the parent's run
+torch.backends.cuda.matmul.allow_tf32 = False
+t0 = time.perf_counter()
+programs, manifest = export.load_exported(out)
+load_s = time.perf_counter() - t0
+ckpt = torch.load(os.path.join(data, "ckpt.pt"))
+counts = ctypes.CDLL(os.path.join(out, "libegonet_ops.so"))
+counts.egonet_launches.restype = ctypes.c_int64
+counts.egonet_set_launches.argtypes = [ctypes.c_int, ctypes.c_int64]
+rows = {}
+for b in sorted(programs):
+    inp = torch.load(os.path.join(data, f"in_{b}.pt"))
+    program = export.bind(programs[b], manifest, ckpt["hrnet"],
+                          ckpt["lifter"], ckpt["ls"])
+    with torch.inference_mode():
+        counts.egonet_set_launches(0, 0)
+        got = program(inp["images"], inp["meta"])
+        torch.cuda.synchronize()
+        launches = counts.egonet_launches(0)
+        for _ in range(3):
+            program(inp["images"], inp["meta"])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            program(inp["images"], inp["meta"])
+        end.record()
+        torch.cuda.synchronize()
+    torch.save(got.cpu(), os.path.join(data, f"out_{b}.pt"))
+    rows[str(b)] = {"launches_per_call": launches,
+                    "exported_ms": start.elapsed_time(end) / 10}
+print(json.dumps({"load_s": load_s, "buckets": rows, "modules": sorted(
+    m for m in sys.modules if m.startswith("egonet_tpu_torch"))}))
+"""
+
+
+def _fresh_export_leg(torch, model, out, inputs, live, here):
+    """Run the artifact directory ``out`` in a fresh interpreter that
+    imports torch and ``io/export.py`` only: each bucket bit-equal to the
+    live ``_core`` outputs ``live`` on ``inputs``, 104 fused launches per
+    call (the C++ counts of the directory's ``libegonet_ops.so``), and no
+    module of ``egonet_tpu_torch.ops`` or ``egonet_tpu_torch.models``
+    loaded."""
+    with tempfile.TemporaryDirectory() as data:
+        torch.save({"hrnet": model.hrnet.state_dict(),
+                    "lifter": model.lifter.state_dict(),
+                    "ls": {k: v.cpu() for k, v in model.ls_stats.items()}},
+                   os.path.join(data, "ckpt.pt"))
+        for b, (images, meta) in inputs.items():
+            torch.save({"images": images, "meta": meta},
+                       os.path.join(data, f"in_{b}.pt"))
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", FRESH_EXPORT, here, out,
+                              data], capture_output=True, text=True,
+                             timeout=600)
+        assert res.returncode == 0, res.stderr[-3000:]
+        row = json.loads(res.stdout.strip().splitlines()[-1])
+        row["process_s"] = time.perf_counter() - t0
+        for b, want in live.items():
+            got = torch.load(os.path.join(data, f"out_{b}.pt"))
+            r = row["buckets"][str(b)]
+            r["bit_equal"] = bool(torch.equal(got, want.cpu()))
+            assert r["bit_equal"], b
+            assert r["launches_per_call"] == 104, r
+    bad = [m for m in row["modules"]
+           if m.startswith(("egonet_tpu_torch.ops", "egonet_tpu_torch.models"))]
+    assert not bad, bad
+    return row
+
+
+def export_phase(torch, np, fb, st, annot, card, here):
     """Export buckets 16 and 128 of the W48 ``_core`` on the card
-    (``io/export.py``: weight-agnostic .pt2, 16 canvases of 384x1280),
-    load them, lay in the live model's weights and hold each against the
-    live ``_core`` on the same inputs (kpts within one bf16 step, angles
-    1e-3 rad): 104 fused-op nodes in each graph and 104 launches per call;
+    (``io/export.py``: weight-agnostic .pt2, 16 canvases of 384x1280, the
+    operator libraries copied beside them), load them, lay in the live
+    model's weights and hold each against the live ``_core`` on the same
+    inputs (kpts within one bf16 step, angles 1e-3 rad): 104 fused-op
+    nodes in each graph and 104 launches per call; then the same artifact
+    directory in a fresh interpreter that imports torch and
+    ``io/export.py`` only, bit-equal to live (:func:`_fresh_export_leg`);
     then a second seeded weight set laid into the same artifact against a
     live model built with it.  Times both programs per call (CUDA events
-    over 10 calls after 3), and the custom op's host cost per call against
-    a direct launch of the kernel."""
+    over 10 calls after 3), and a kernel call's host cost through the
+    wrapper, through the C++ operator alone and by a direct launch."""
     from egonet_tpu_torch.config import demo_config
     from egonet_tpu_torch.io import export
     t_phase = time.perf_counter()
     model = _slice_model(torch, demo_config())
     row = {"buckets": {}, "card": card}
+    ls = {k: v.cpu().numpy() for k, v in model.ls_stats.items()}
+    inputs, live_out = {}, {}
     with tempfile.TemporaryDirectory() as out:
         t0 = time.perf_counter()
         manifest = export.export_shape_set(model, out, buckets=EXPORT_BUCKETS)
         row["export_s"] = time.perf_counter() - t0
+        row["op_libraries"] = manifest["op_libraries"]
         t0 = time.perf_counter()
         programs, loaded = export.load_exported(out)
         row["load_s"] = time.perf_counter() - t0
-    ls = {k: v.cpu().numpy() for k, v in model.ls_stats.items()}
-    for b in EXPORT_BUCKETS:
-        entry = manifest["artifacts"][str(b)]
-        assert entry["fused_nodes"] == 104, entry
-        program = export.bind(programs[b], loaded, model.hrnet.state_dict(),
-                              model.lifter.state_dict(), ls)
-        images, meta = _export_inputs(torch, np, annot, b)
-        with torch.inference_mode():
-            live = model._core(images, meta, alpha_mode="proj")
-            fb.fused_basic_block.launches = 0
-            got = program(images, meta)
-            torch.cuda.synchronize()
-            launches = fb.fused_basic_block.launches
-            assert launches == 104, launches
-            kpts_steps, ang = _export_gap(torch, np, got, live)
-            assert torch.isfinite(got).all()
-            assert kpts_steps <= 1.0 and ang < EXPORT_ANGLE_RAD, (
-                kpts_steps, ang)
-            live_ms = _time_ms(torch, lambda: model._core(
-                images, meta, alpha_mode="proj"), iters=10)
-            exported_ms = _time_ms(torch, lambda: program(images, meta),
-                                   iters=10)
-        row["buckets"][str(b)] = {
-            "bytes": entry["bytes"], "fused_nodes": entry["fused_nodes"],
-            "launches_per_call": launches, "kpts_bf16_steps": kpts_steps,
-            "max_d_angle_rad": ang, "live_ms": live_ms,
-            "exported_ms": exported_ms}
+        for b in EXPORT_BUCKETS:
+            entry = manifest["artifacts"][str(b)]
+            assert entry["fused_nodes"] == 104, entry
+            program = export.bind(programs[b], loaded,
+                                  model.hrnet.state_dict(),
+                                  model.lifter.state_dict(), ls)
+            images, meta = inputs[b] = _export_inputs(torch, np, annot, b)
+            with torch.inference_mode():
+                live = live_out[b] = model._core(images, meta,
+                                                 alpha_mode="proj")
+                fb.fused_basic_block.launches = 0
+                got = program(images, meta)
+                torch.cuda.synchronize()
+                launches = fb.fused_basic_block.launches
+                assert launches == 104, launches
+                kpts_steps, ang = _export_gap(torch, np, got, live)
+                assert torch.isfinite(got).all()
+                assert kpts_steps <= 1.0 and ang < EXPORT_ANGLE_RAD, (
+                    kpts_steps, ang)
+                live_ms = _time_ms(torch, lambda: model._core(
+                    images, meta, alpha_mode="proj"), iters=10)
+                exported_ms = _time_ms(torch, lambda: program(images, meta),
+                                       iters=10)
+            row["buckets"][str(b)] = {
+                "bytes": entry["bytes"], "fused_nodes": entry["fused_nodes"],
+                "launches_per_call": launches,
+                "bit_equal": bool(torch.equal(got, live)),
+                "kpts_bf16_steps": kpts_steps, "max_d_angle_rad": ang,
+                "live_ms": live_ms, "exported_ms": exported_ms}
+        row["fresh_interpreter"] = _fresh_export_leg(
+            torch, model, out, inputs, live_out, here)
     # a second weight set through the bucket-16 artifact
     from egonet_tpu_torch.models.egonet import EgoNet
     from egonet_tpu_torch.precision import _plausible_ls_stats
@@ -1959,16 +2055,22 @@ def export_phase(torch, np, fb, st, annot, card):
 
 
 def _op_overhead(torch, fb, n=500):
-    """Host microseconds per call of the tiled kernel through its custom
-    op and through a direct launch, at a block whose kernel takes a few
-    microseconds (C=48, 8x8, one image: one thread block), so the host's
-    enqueue is the time; the device synchronised at the end of each run
-    of ``n`` calls."""
+    """A tiled kernel call's host cost, at a block whose kernel takes a few
+    microseconds (C=48, 8x8, one image: one thread block): through its
+    wrapper (``op``: the Python wrapper and the C++ operator), through the
+    C++ operator alone (``op_dispatch``: ``torch.ops.egonet.
+    fused_basic_block.default``) and by a direct launch (``direct``:
+    ctypes).  ``host_us``: microseconds per call of the host's loop of
+    ``n`` calls, before the device is waited for (the launch queue holds
+    them); ``wall_us``: per call up to the device's end (the kernel's
+    own time bounds it from below)."""
     g = torch.Generator(device="cuda").manual_seed(5)
     x, (w1, b1, w2, b2) = _block_inputs(torch, fb, g, 48, 8, 1)
     launcher = fb._default_launcher(48)
-    out = {}
+    op = torch.ops.egonet.fused_basic_block.default
+    out = {"host_us": {}, "wall_us": {}}
     for name, fn in (("op", lambda: fb.fused_basic_block(x, w1, b1, w2, b2)),
+                     ("op_dispatch", lambda: op(x, w1, b1, w2, b2)),
                      ("direct", lambda: fb._launch(x, w1, b1, w2, b2,
                                                    *launcher))):
         with torch.inference_mode():
@@ -1978,8 +2080,10 @@ def _op_overhead(torch, fb, n=500):
             t0 = time.perf_counter()
             for _ in range(n):
                 fn()
+            t1 = time.perf_counter()
             torch.cuda.synchronize()
-        out[name] = (time.perf_counter() - t0) / n * 1e6
+        out["host_us"][name] = (t1 - t0) / n * 1e6
+        out["wall_us"][name] = (time.perf_counter() - t0) / n * 1e6
     return out
 
 
@@ -2557,12 +2661,19 @@ def main(argv=None) -> int:
     ped_stencil_lib = st.library([p for plans in ped_stencil.values()
                                   for p in plans])
     t0 = time.perf_counter()
-    _build.build([fb.library(), sweep_lib, st.library(), ssweep_lib,
-                  ped_tiled_lib, ped_stencil_lib])
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    # the operator libraries (csrc/egonet_ops*.cpp, the host compiler) and
+    # every kernel library (nvcc), all compilers started together
+    _build.build(_build.ops_libs("cuda") + [sweep_lib, ssweep_lib,
+                                            ped_tiled_lib, ped_stencil_lib])
+    build_s = time.perf_counter() - t0
+    print(f"kernels built in {build_s:.1f} s", flush=True)
     for name, info in _build.BUILD_INFO.items():
         print(f"[{name}] built in {info['seconds']:.1f} s; "
               + "; ".join(_ptxas_summary(info["log"])), flush=True)
+    print(json.dumps({"build": {
+        "wall_s": build_s, "card": card,
+        "seconds": {n: i["seconds"] for n, i in _build.BUILD_INFO.items()}}}),
+        flush=True)
 
     print(json.dumps({"sass": sass_report(_build, fb, st)}), flush=True)
     phase_s = {}
@@ -2621,7 +2732,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     serve = timed("serve", serve_phase, torch, np, fb, st, card)
     torch.cuda.empty_cache()
-    exported = timed("export", export_phase, torch, np, fb, st, annot, card)
+    exported = timed("export", export_phase, torch, np, fb, st, annot, card,
+                     here)
     torch.cuda.empty_cache()
     meshed = timed("mesh", mesh_phase, torch, np, fb, st, annot, card)
     torch.cuda.empty_cache()
@@ -2641,7 +2753,10 @@ def main(argv=None) -> int:
              "egonet_tpu/ops/pallas_block_stencil.py:160")):
         entry = _kernel_entry(w48_rows, launches, name=name, route="cuda",
                               source=f"egonet_tpu_torch/csrc/{name}.cu",
-                              replaces=replaces)
+                              replaces=replaces,
+                              op=f"egonet::{name}, registered in "
+                                 "egonet_tpu_torch/csrc/egonet_ops.cpp and "
+                                 "egonet_ops_cuda.cpp")
         entry["max_abs_err"] = max(r["max_abs_err"]
                                    for r in w48_rows + ped_rows[name])
         entry["shapes"] = _shapes(w48_rows + ped_rows[name])

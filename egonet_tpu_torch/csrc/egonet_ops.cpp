@@ -1,0 +1,105 @@
+// Both fused BasicBlock kernels as torch operators, defined once, in C++:
+//
+//   egonet::fused_basic_block(Tensor x, Tensor w1, Tensor b1, Tensor w2,
+//                             Tensor b2) -> Tensor
+//   egonet::fused_basic_block_stencil(<the same>) -> Tensor
+//
+// y = relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2 + x) on NHWC
+// operands, batch norm folded (ops/fused_block.py).  This library holds
+// the schemas, the CPU kernels (the plain version) and the Meta kernels
+// (the contract, for torch.export and fake tensors), plus the launch
+// counts.  libegonet_ops_cuda.so adds the CUDA kernels.  Both load with
+// torch.ops.load_library and nothing else: an exported program that holds
+// these ops runs from torch and the libraries alone (io/export.py).
+//
+// Built by ops/_build.py with the host C++ compiler against the installed
+// torch's headers and libraries (c10, torch_cpu); it includes
+// torch/library.h and ATen's headers only, never torch/extension.h.
+
+#include <ATen/TensorOperators.h>
+#include <ATen/core/Tensor.h>
+#include <ATen/ops/conv2d.h>
+#include <ATen/ops/empty_like.h>
+#include <ATen/ops/relu.h>
+#include <torch/library.h>
+
+#include <atomic>
+
+#include "egonet_ops.h"
+
+namespace {
+
+std::atomic<int64_t> g_launches[egonet::kOps];
+
+bool valid(int op) { return op >= 0 && op < egonet::kOps; }
+
+// ops/fused_block.py (fused_basic_block_reference) in ATen: the same ops in
+// the same order, so the two agree bit for bit.  fp32 convolutions on the
+// permuted NHWC operands; the bias, then relu; mid rounded to bf16 when x
+// is bf16; the second conv, its bias and the residual, then relu; the
+// result in x's dtype.
+at::Tensor plain(const at::Tensor& x, const at::Tensor& w1,
+                 const at::Tensor& b1, const at::Tensor& w2,
+                 const at::Tensor& b2) {
+  const int64_t c = x.size(-1);
+  const auto conv = [c](const at::Tensor& h, const at::Tensor& w) {
+    const at::Tensor oihw =
+        w.reshape({c, 3, 3, c}).to(at::kFloat).permute({0, 3, 1, 2});
+    return at::conv2d(h.permute({0, 3, 1, 2}), oihw, {}, 1, 1)
+        .permute({0, 2, 3, 1});
+  };
+  const at::Tensor xf = x.to(at::kFloat);
+  at::Tensor mid = at::relu(conv(xf, w1) + b1.to(at::kFloat).reshape(-1));
+  if (x.scalar_type() == at::kBFloat16) {
+    mid = mid.to(at::kBFloat16).to(at::kFloat);
+  }
+  const at::Tensor y =
+      at::relu(conv(mid, w2) + b2.to(at::kFloat).reshape(-1) + xf);
+  return y.to(x.scalar_type());
+}
+
+template <egonet::Op OP>
+at::Tensor meta(const at::Tensor& x, const at::Tensor& w1,
+                const at::Tensor& b1, const at::Tensor& w2,
+                const at::Tensor& b2) {
+  egonet::check_contract(x, w1, b1, w2, b2, OP);
+  return at::empty_like(x);
+}
+
+}  // namespace
+
+// called through ctypes too, so they throw nothing: an unknown op reads -1
+extern "C" {
+
+int64_t egonet_launches(int op) {
+  return valid(op) ? g_launches[op].load() : -1;
+}
+
+void egonet_set_launches(int op, int64_t n) {
+  if (valid(op)) g_launches[op].store(n);
+}
+
+void egonet_add_launch(int op) {
+  if (valid(op)) g_launches[op].fetch_add(1);
+}
+
+}  // extern "C"
+
+TORCH_LIBRARY(egonet, m) {
+  m.def(
+      "fused_basic_block(Tensor x, Tensor w1, Tensor b1, Tensor w2, "
+      "Tensor b2) -> Tensor");
+  m.def(
+      "fused_basic_block_stencil(Tensor x, Tensor w1, Tensor b1, Tensor w2, "
+      "Tensor b2) -> Tensor");
+}
+
+TORCH_LIBRARY_IMPL(egonet, CPU, m) {
+  m.impl("fused_basic_block", &plain);
+  m.impl("fused_basic_block_stencil", &plain);
+}
+
+TORCH_LIBRARY_IMPL(egonet, Meta, m) {
+  m.impl("fused_basic_block", &meta<egonet::kTiled>);
+  m.impl("fused_basic_block_stencil", &meta<egonet::kStencil>);
+}

@@ -1,0 +1,182 @@
+// The CUDA kernels of egonet::fused_basic_block and
+// egonet::fused_basic_block_stencil (the schemas, CPU and Meta kernels are
+// egonet_ops.cpp's): check the operands, take the width's default plan and
+// launch the Hopper kernel of fused_basic_block.cu /
+// fused_basic_block_stencil.cu through its plain C entry point, on the
+// current stream of x's device with that device current.
+//
+// Host C++ only, built by ops/_build.py with the host compiler against
+// torch's headers (c10/cuda for the device guard and the stream) and
+// linked against libegonet_ops.so (the launch counts) and the two default
+// kernel libraries, found beside it through the rpath $ORIGIN.  The kernel
+// sources stay free of torch's headers, so their nvcc builds take seconds.
+//
+// The plans are defined once, in Python (plan_for / takes of
+// ops/fused_block.py and ops/fused_block_stencil.py): ops/_build.py writes
+// them into this library's prelude as X-macros, the plan structs' fields
+// (EGONET_*_FIELDS, the kernels' Plan / StencilPlan in the same order) and
+// every width's default plan (EGONET_*_PLANS), and a changed table
+// rebuilds the library.
+
+#include <ATen/core/Tensor.h>
+#include <ATen/ops/empty_like.h>
+#include <c10/cuda/CUDAException.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+#include <torch/library.h>
+
+#include <cstdint>
+#include <mutex>
+#include <set>
+#include <sstream>
+#include <string>
+#include <utility>
+
+#include "egonet_ops.h"
+
+#if !defined(EGONET_TILED_PLANS) || !defined(EGONET_STENCIL_PLANS)
+#error "the plan table is undefined: build through egonet_tpu_torch/ops/_build.py"
+#endif
+
+#define EGONET_FIELD(f) int f;
+struct TiledPlan {
+  EGONET_TILED_FIELDS(EGONET_FIELD)
+};
+struct StencilPlan {
+  EGONET_STENCIL_FIELDS(EGONET_FIELD)
+};
+#undef EGONET_FIELD
+
+extern "C" {
+// fused_basic_block.cu / fused_basic_block_stencil.cu: 0 or a cudaError_t
+int egonet_fused_basic_block(const void* x, const void* w1, const void* b1,
+                             const void* w2, const void* b2, void* y, int N,
+                             int H, int W, int C, TiledPlan p, void* stream);
+int egonet_fused_basic_block_stencil(const void* x, const void* w1,
+                                     const void* b1, const void* w2,
+                                     const void* b2, void* y, int N, int H,
+                                     int W, int C, StencilPlan p,
+                                     void* stream);
+int egonet_fused_basic_block_stencil_clusters(int C, StencilPlan p,
+                                              int* clusters);
+}
+
+namespace {
+
+template <typename Plan>
+struct Entry {
+  int c;
+  Plan plan;
+};
+
+#define EGONET_ENTRY(c, ...) {c, {__VA_ARGS__}},
+const Entry<TiledPlan> kTiled[] = {EGONET_TILED_PLANS(EGONET_ENTRY)};
+const Entry<StencilPlan> kStencil[] = {EGONET_STENCIL_PLANS(EGONET_ENTRY)};
+#undef EGONET_ENTRY
+
+template <typename Plan, size_t N>
+const Plan& plan_for(const Entry<Plan> (&table)[N], int64_t c,
+                     const char* op) {
+  for (const Entry<Plan>& e : table) {
+    if (e.c == c) return e.plan;
+  }
+  TORCH_CHECK_VALUE(false, op, ": the default library serves no plan at C=",
+                    c, " (ops/fused_block*.py takes(c))");
+}
+
+std::string describe(const TiledPlan& p) {
+  std::ostringstream s;
+#define EGONET_SHOW(f) s << " " #f "=" << p.f;
+  EGONET_TILED_FIELDS(EGONET_SHOW)
+#undef EGONET_SHOW
+  return s.str();
+}
+
+std::string describe(const StencilPlan& p) {
+  std::ostringstream s;
+#define EGONET_SHOW(f) s << " " #f "=" << p.f;
+  EGONET_STENCIL_FIELDS(EGONET_SHOW)
+#undef EGONET_SHOW
+  return s.str();
+}
+
+// The error's text, as torch's CUDA runtime names it.
+std::string cuda_error(int err) {
+  try {
+    c10::cuda::c10_cuda_check_implementation(err, __FILE__, __func__,
+                                             __LINE__, false);
+  } catch (const c10::Error& e) {
+    const std::string what = e.what_without_backtrace();
+    return "CUDA error " + std::to_string(err) + " (" +
+           what.substr(0, what.find('\n')) + ")";
+  }
+  return "no CUDA error";
+}
+
+// _check of ops/fused_block.py: the contract, then 32-byte alignment.
+void check(const at::Tensor& x, const at::Tensor& w1, const at::Tensor& b1,
+           const at::Tensor& w2, const at::Tensor& b2, egonet::Op op) {
+  egonet::check_contract(x, w1, b1, w2, b2, op);
+  for (const at::Tensor* t : {&x, &w1, &b1, &w2, &b2}) {
+    TORCH_CHECK_VALUE(reinterpret_cast<uintptr_t>(t->data_ptr()) % 32 == 0,
+                      "operands must be 32-byte aligned");
+  }
+}
+
+// The stencil's cluster-occupancy check, once per device and plan (width):
+// a launch of a plan the card holds no cluster of would fail.
+void check_clusters(int device, int64_t c, const StencilPlan& p) {
+  static std::mutex mu;
+  static std::set<std::pair<int, int64_t>> held;
+  const std::lock_guard<std::mutex> lock(mu);
+  if (held.count({device, c})) return;
+  int clusters = 0;
+  const int err =
+      egonet_fused_basic_block_stencil_clusters(int(c), p, &clusters);
+  TORCH_CHECK(err == 0, "cluster occupancy query failed: ", cuda_error(err),
+              " (C=", c, describe(p), ")");
+  TORCH_CHECK(clusters >= 1, "the card holds no cluster of ", p.k,
+              " blocks of ", p.smem, " bytes (C=", c, describe(p), ")");
+  held.insert({device, c});
+}
+
+template <egonet::Op OP>
+at::Tensor fused_cuda(const at::Tensor& x, const at::Tensor& w1,
+                      const at::Tensor& b1, const at::Tensor& w2,
+                      const at::Tensor& b2) {
+  const char* name =
+      OP == egonet::kTiled ? "fused_basic_block" : "fused_basic_block_stencil";
+  check(x, w1, b1, w2, b2, OP);
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int n = int(x.size(0)), h = int(x.size(1)), w = int(x.size(2)),
+            c = int(x.size(3));
+  at::Tensor y = at::empty_like(x);
+  void* stream = c10::cuda::getCurrentCUDAStream(x.device().index()).stream();
+  int err;
+  std::string plan;
+  if constexpr (OP == egonet::kTiled) {
+    const TiledPlan& p = plan_for(kTiled, c, name);
+    err = egonet_fused_basic_block(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                                   w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
+                                   n, h, w, c, p, stream);
+    if (err != 0) plan = describe(p);
+  } else {
+    const StencilPlan& p = plan_for(kStencil, c, name);
+    check_clusters(x.device().index(), c, p);
+    err = egonet_fused_basic_block_stencil(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), y.data_ptr(), n, h, w, c, p, stream);
+    if (err != 0) plan = describe(p);
+  }
+  TORCH_CHECK(err == 0, name, " launch failed: ", cuda_error(err), " (N=", n,
+              " H=", h, " W=", w, " C=", c, " plan:", plan, ")");
+  egonet_add_launch(OP);
+  return y;
+}
+
+}  // namespace
+
+TORCH_LIBRARY_IMPL(egonet, CUDA, m) {
+  m.impl("fused_basic_block", &fused_cuda<egonet::kTiled>);
+  m.impl("fused_basic_block_stencil", &fused_cuda<egonet::kStencil>);
+}

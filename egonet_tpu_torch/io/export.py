@@ -21,13 +21,26 @@ architecture.
 The program is ``EgoNet._core`` in canvas mode, ``(images [n_img, H, W, 3]
 uint8, meta [bucket, META_COLS] f32)``; each instance's frame index is read
 from meta's column 8 on the device (as the JAX artifact reads it), so the
-graph holds no request's indices.  Both fused BasicBlock kernels are
-custom ops (``egonet::fused_basic_block``, ``egonet::fused_basic_block_
-stencil``, registered by importing ``egonet_tpu_torch.ops``, which this
-module does before ``torch.export.load``): each fusable HRNet block is one
-node of the graph, and the program exported on the card launches the
-kernel there.  AOTInductor is not used (it would need the kernels as C++
-ops).
+graph holds no request's indices.  Both fused BasicBlock kernels are torch
+operators defined in C++ (``egonet::fused_basic_block``,
+``egonet::fused_basic_block_stencil``; ``csrc/egonet_ops*.cpp``): each
+fusable HRNet block is one node of the graph, and the program exported on
+the card launches the kernel there.
+
+An artifact directory stands alone, as the JAX package's does (a Pallas
+kernel rides in its StableHLO): :func:`export_shape_set` copies the
+operator libraries into it (``libegonet_ops.so``, and from the card
+``libegonet_ops_cuda.so`` with the two kernel libraries it links, found
+beside it through the rpath ``$ORIGIN``) and names them in the manifest
+with the torch and CUDA versions they were built against.
+:func:`load_exported` loads them with ``torch.ops.load_library`` before
+``torch.export.load`` (and raises if the running torch is another), so the
+loading half (:func:`load_exported`, :func:`weights_for`, :func:`bind`)
+needs torch and this module only: it imports nothing of
+``egonet_tpu_torch.ops`` or ``egonet_tpu_torch.models``.  Still missing:
+AOTInductor (a compiled ``.so`` of the whole graph with the operators
+linked in, run from C++ without Python), which these C++ operators now
+allow.
 """
 
 from __future__ import annotations
@@ -37,16 +50,20 @@ import io
 import json
 import logging
 import os
+import shutil
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-import egonet_tpu_torch.ops  # noqa: F401  (registers both custom ops)
-from egonet_tpu_torch.ops.fused_block import fold_conv_bn_tensors
+from egonet_tpu_torch.io.weights import fold_conv_bn_tensors
 
 LS_KEYS = ("mean_in", "std_in", "mean_out", "std_out")
 FUSED_OPS = ("egonet.fused_basic_block", "egonet.fused_basic_block_stencil")
+# the operator libraries an artifact directory holds, in load order, with
+# the dispatch key each registers (a key already served is not loaded
+# again: that library, or another copy of it, is in the process)
+OP_LIBRARIES = {"libegonet_ops.so": "CPU", "libegonet_ops_cuda.so": "CUDA"}
 
 
 class ExportCore(nn.Module):
@@ -166,7 +183,8 @@ def fused_nodes(program) -> int:
 def export_shape_set(model, out_dir: str, buckets=(8, 16, 32, 64, 128),
                      n_img: int = 16, canvas_hw=(384, 1280),
                      alpha_mode: str = "proj") -> dict:
-    """Export every bucket program + a manifest; returns the manifest."""
+    """Export every bucket program + a manifest + the operator libraries
+    the programs need; returns the manifest."""
     from egonet_tpu_torch.models.egonet import META_COLS
     os.makedirs(out_dir, exist_ok=True)
     manifest = {
@@ -180,6 +198,7 @@ def export_shape_set(model, out_dir: str, buckets=(8, 16, 32, 64, 128),
                      "hrnet_state, lifter_state, ls_stats)",
         "meta_cols": META_COLS,
         "artifacts": {},
+        "op_libraries": _copy_op_libraries(model.device.type, out_dir),
     }
     for b in buckets:
         program, core = export_program(model, b, n_img, canvas_hw,
@@ -196,11 +215,62 @@ def export_shape_set(model, out_dir: str, buckets=(8, 16, 32, 64, 128),
     return manifest
 
 
+def _copy_op_libraries(device_type: str, out_dir: str) -> dict:
+    """Copy the operator libraries for ``device_type`` (built or loaded
+    here first) and the kernel libraries they link into ``out_dir``; the
+    manifest's entry for them."""
+    from egonet_tpu_torch.ops import _build
+    _build.load_ops(device_type)
+    names = [_build.OPS] + ([_build.OPS_CUDA] if device_type == "cuda"
+                            else [])
+    files = sorted({f"lib{n}.so" for name in names
+                    for n in (name,) + _build._LINKS[name]})
+    for f in files:
+        shutil.copy2(os.path.join(_build.BUILD_DIR, f),
+                     os.path.join(out_dir, f))
+    return {"load": [f"lib{n}.so" for n in names], "files": files,
+            "torch": torch.__version__, "cuda": torch.version.cuda}
+
+
+def _has_kernel(key: str) -> bool:
+    try:
+        return torch._C._dispatch_has_kernel_for_dispatch_key(
+            "egonet::fused_basic_block", key)
+    except RuntimeError:                 # no such op yet
+        return False
+
+
+def load_op_libraries(out_dir: str, manifest: dict) -> None:
+    """Register the fused-block operators from the artifact directory's
+    libraries (the CUDA one only where CUDA is available), unless the
+    process already serves their dispatch key.  Raises if the running
+    torch is not the one they were built against.  A manifest without
+    libraries (written before they were shipped) loads none: the caller
+    registers the operators."""
+    libs = manifest.get("op_libraries")
+    if libs is None:
+        return
+    if libs["torch"] != torch.__version__:
+        raise RuntimeError(
+            f"{out_dir}: the operator libraries were built against torch "
+            f"{libs['torch']} (CUDA {libs['cuda']}); this is torch "
+            f"{torch.__version__} (CUDA {torch.version.cuda}): export "
+            "again with this torch")
+    for name in libs["load"]:
+        key = OP_LIBRARIES[name]
+        if _has_kernel(key) or (key == "CUDA"
+                                and not torch.cuda.is_available()):
+            continue
+        torch.ops.load_library(os.path.join(out_dir, name))
+
+
 def load_exported(out_dir: str):
     """Deserialize an exported shape set -> ({bucket: ExportedProgram
-    without weights}, manifest); :func:`bind` makes one runnable."""
+    without weights}, manifest), the directory's operator libraries loaded
+    first (:func:`load_op_libraries`); :func:`bind` makes one runnable."""
     with open(os.path.join(out_dir, "manifest.json")) as f:
         manifest = json.load(f)
+    load_op_libraries(out_dir, manifest)
     programs = {}
     # the state saved on the meta device has no bytes: the loader warns
     # for each such tensor and fills zeros, which bind() replaces

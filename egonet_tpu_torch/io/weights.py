@@ -112,3 +112,19 @@ def load_lifter_stats(path: str) -> dict:
     """Load LS.npy: {'mean_in','std_in','mean_out','std_out'} float32."""
     stats = np.load(path, allow_pickle=True).item()
     return {k: np.asarray(v, dtype=np.float32) for k, v in stats.items()}
+
+
+@torch.no_grad()
+def fold_conv_bn_tensors(weight, gamma, beta, mean, var, eps: float):
+    """Fold an inference-mode batch norm into the bias-free OIHW conv before
+    it, in fp32 on the tensors' device: a ``state_dict``'s conv ``weight``
+    and the batch norm's ``weight``, ``bias``, ``running_mean`` and
+    ``running_var``.  Returns (w [C_out, 3, 3, C_in] bf16, b [C] fp32) in
+    the fused BasicBlock kernels' layout (``ops/fused_block.py``); here so
+    that an exported program binds a checkpoint without the kernels'
+    modules (``io/export.py``)."""
+    inv = gamma.float() / torch.sqrt(var.float() + eps)
+    w = weight.float() * inv[:, None, None, None]
+    b = beta.float() - mean.float() * inv
+    return (w.permute(0, 2, 3, 1).contiguous().to(torch.bfloat16),
+            b.contiguous())

@@ -1,6 +1,4 @@
-"""Device and host operators of the port.  Importing the package registers
-both fused BasicBlock kernels as torch custom ops
-(``egonet::fused_basic_block``, ``egonet::fused_basic_block_stencil``),
-which loading an exported program (``io/export.py``) needs."""
-
-from egonet_tpu_torch.ops import fused_block, fused_block_stencil  # noqa: F401
+"""Device and host operators of the port.  Both fused BasicBlock kernels
+are torch operators (``egonet::fused_basic_block``,
+``egonet::fused_basic_block_stencil``) defined in C++ and loaded at first
+use (``_build.load_ops``); importing this package registers nothing."""

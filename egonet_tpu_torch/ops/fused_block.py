@@ -33,14 +33,18 @@ and passed to the kernel, which checks it against the layout it addresses.
 The kernel library instantiates exactly the (MT, NT, KS) variants of the
 plans it serves (:func:`library`), listed here and nowhere else.
 
-The kernel is the custom op ``egonet::fused_basic_block`` (``torch.library``):
-its CUDA implementation checks the operands and launches, its CPU
-implementation is the plain version, and its fake implementation gives the
-output's shape to ``torch.export``, so an exported program holds one node
-per block.  The wrapper :func:`fused_basic_block` calls the op: the plain
-version only for a tensor on the CPU; for a CUDA tensor it launches the
-kernel or raises.  ``fused_basic_block.launches`` counts kernel launches
-(and nothing else).
+The kernel is the operator ``egonet::fused_basic_block``, registered once,
+in C++ (``csrc/egonet_ops.cpp``: schema, CPU kernel = the plain version in
+ATen, Meta kernel = the contract for ``torch.export``;
+``csrc/egonet_ops_cuda.cpp``: the CUDA kernel, which checks the operands and
+launches each width's default plan, generated from :func:`plan_for`), so an
+exported program holds one node per block and runs from torch and the
+libraries alone.  The wrapper :func:`fused_basic_block` loads them at first
+use (``_build.load_ops``) and calls the op: the plain version only for a
+tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
+:func:`_launch` launches another plan directly (ctypes; the tile sweeps).
+``fused_basic_block.launches`` counts kernel launches, through the op or
+direct (and nothing else).
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from egonet_tpu_torch.io.weights import fold_conv_bn_tensors
 from egonet_tpu_torch.ops import _build
 
 _LIB_NAME = "fused_basic_block"
@@ -115,17 +120,6 @@ def fold_conv_bn(weight: torch.Tensor, bn: torch.nn.BatchNorm2d):
     the kernel's layout."""
     return fold_conv_bn_tensors(weight, bn.weight, bn.bias, bn.running_mean,
                                 bn.running_var, bn.eps)
-
-
-@torch.no_grad()
-def fold_conv_bn_tensors(weight, gamma, beta, mean, var, eps: float):
-    """:func:`fold_conv_bn` on the batch norm's tensors (a ``state_dict``'s
-    ``weight``, ``bias``, ``running_mean`` and ``running_var``)."""
-    inv = gamma.float() / torch.sqrt(var.float() + eps)
-    w = weight.float() * inv[:, None, None, None]
-    b = beta.float() - mean.float() * inv
-    return (w.permute(0, 2, 3, 1).contiguous().to(torch.bfloat16),
-            b.contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +257,11 @@ def takes(c: int) -> bool:
     return c % 16 == 0 and 16 <= c <= _MAX_C and tile_fits(c, None)
 
 
+def _default_plans():
+    """The default plan of every width the kernel takes."""
+    return [plan_for(c) for c in range(16, _MAX_C + 1, 16) if takes(c)]
+
+
 def library(plans=None):
     """The kernel library as ``_build`` takes it, (name, source, prelude):
     ``csrc/fused_basic_block.cu`` instantiating the (MT, NT, KS) variants
@@ -271,8 +270,7 @@ def library(plans=None):
     plans (a tile sweep) is named by its variant list."""
     default = plans is None
     if default:
-        plans = [plan_for(c) for c in range(16, _MAX_C + 1, 16)
-                 if takes(c)]
+        plans = _default_plans()
     variants = sorted({(p.mt, p.nt, p.ks) for p in plans})
     prelude = "#define EGONET_VARIANTS " + " ".join(
         f"EGONET_VARIANT({mt}, {nt}, {ks})" for mt, nt, ks in variants) + "\n"
@@ -297,8 +295,9 @@ def tile_for(c: int):
 
 
 def _check_shapes(x, w1, b1, w2, b2):
-    """The operand checks that need no data (the custom op's fake
-    implementation runs them on tensors without storage)."""
+    """The operand checks that need no data, for the stencil's direct
+    ``tile=`` launches (the operators' Meta and CUDA kernels run the same
+    checks in C++, ``csrc/egonet_ops.h``)."""
     if x.dtype != torch.bfloat16 or x.dim() != 4 or not x.is_contiguous():
         raise ValueError("x must be a contiguous NHWC bf16 tensor, got "
                          f"{x.dtype} {tuple(x.shape)}")
@@ -334,44 +333,18 @@ def _default_launcher(c: int):
     return launcher
 
 
+@_build.counted(_build.TILED)
 def fused_basic_block(x, w1, b1, w2, b2) -> torch.Tensor:
     """y = relu(conv(relu(conv(x, w1) + b1), w2) + b2 + x), NHWC bf16.
 
     x [N, H, W, C] bf16 contiguous; w1, w2 [C, 3, 3, C] bf16 (folded,
-    tap-major); b1, b2 [C] fp32.  Calls the custom op
-    ``egonet::fused_basic_block``: a CPU tensor goes through
-    :func:`fused_basic_block_reference`; a CUDA tensor launches the kernel
-    with the plan of :func:`tile_for` on the calling thread's current
-    stream or raises.  Under ``torch.export`` the op is one graph node."""
-    return torch.ops.egonet.fused_basic_block(x, w1, b1, w2, b2)
-
-
-@torch.library.custom_op("egonet::fused_basic_block", mutates_args=(),
-                         device_types="cuda")
-def _fused_basic_block_cuda(x: torch.Tensor, w1: torch.Tensor,
-                            b1: torch.Tensor, w2: torch.Tensor,
-                            b2: torch.Tensor) -> torch.Tensor:
-    return _op_cuda(x, w1, b1, w2, b2)
-
-
-def _op_cuda(x, w1, b1, w2, b2):
-    """The op's CUDA body, under x's device: the launcher's first build and
-    the launch itself act on the card that holds the operands, not on the
-    thread's current one."""
-    with torch.cuda.device(x.device):
-        _check(x, w1, b1, w2, b2)
-        return _launch(x, w1, b1, w2, b2, *_default_launcher(x.shape[3]))
-
-
-@_fused_basic_block_cuda.register_kernel("cpu")
-def _fused_basic_block_cpu(x, w1, b1, w2, b2):
-    return fused_basic_block_reference(x, w1, b1, w2, b2)
-
-
-@_fused_basic_block_cuda.register_fake
-def _fused_basic_block_fake(x, w1, b1, w2, b2):
-    _check_shapes(x, w1, b1, w2, b2)
-    return torch.empty_like(x)
+    tap-major); b1, b2 [C] fp32.  Calls the operator
+    ``egonet::fused_basic_block``: a CPU tensor goes through the plain
+    version; a CUDA tensor launches the kernel with the plan of
+    :func:`tile_for` on the current stream of x's device or raises.  Under
+    ``torch.export`` the op is one graph node."""
+    _build.load_ops(x.device.type)
+    return torch.ops.egonet.fused_basic_block.default(x, w1, b1, w2, b2)
 
 
 def _launch(x, w1, b1, w2, b2, plan, struct, fn) -> torch.Tensor:
@@ -388,8 +361,5 @@ def _launch(x, w1, b1, w2, b2, plan, struct, fn) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"fused_basic_block launch failed: CUDA error {err}"
                            f" (N={n} H={h} W={w} C={c} plan={plan})")
-    fused_basic_block.launches += 1
+    _build.add_launch(_build.TILED)
     return y
-
-
-fused_basic_block.launches = 0

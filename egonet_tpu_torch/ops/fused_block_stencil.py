@@ -29,12 +29,15 @@ variants of the plans it serves (:func:`library`).
 The plain version is ``fused_block.fused_basic_block_reference``, which
 computes the identical function; it is re-exported here as
 :func:`fused_basic_block_reference`.  The default plan's kernel is the
-custom op ``egonet::fused_basic_block_stencil`` (CUDA: the launch; CPU: the
-plain version; a fake implementation for ``torch.export``), as for the
-tiled kernel.  The wrapper takes the plain version only for a tensor on
-the CPU; for a CUDA tensor it launches the kernel or raises.
-``fused_basic_block_stencil.launches`` counts kernel launches (and nothing
-else).
+operator ``egonet::fused_basic_block_stencil``, registered in C++ beside the
+tiled kernel's (``csrc/egonet_ops.cpp``: schema, CPU kernel = the plain
+version, Meta kernel; ``csrc/egonet_ops_cuda.cpp``: the CUDA kernel, which
+asks the card once per device and plan whether it holds a cluster, then
+launches).  The wrapper takes the plain version only for a tensor on the
+CPU; for a CUDA tensor it launches the kernel or raises.  A ``tile=``
+override launches directly (ctypes).
+``fused_basic_block_stencil.launches`` counts kernel launches, through the
+op or direct (and nothing else).
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ import torch
 
 from egonet_tpu_torch.ops import _build
 from egonet_tpu_torch.ops.fused_block import (_SMEM_LIMIT, _align128, _cdiv,
-                                              _check, _check_shapes,
+                                              _check,
                                               fused_basic_block_reference,
                                               pack_block_weights)
 
@@ -358,52 +361,35 @@ def _check_width(c: int):
         raise ValueError(f"the stencil kernel takes C <= {_MAX_C}, got {c}")
 
 
+@_build.counted(_build.STENCIL)
 def fused_basic_block_stencil(x, w1, b1, w2, b2, tile=None) -> torch.Tensor:
     """y = relu(conv(relu(conv(x, w1) + b1), w2) + b2 + x), NHWC bf16, by
     row streaming.
 
     x [N, H, W, C] bf16 contiguous, C <= 384; w1, w2 [C, 3, 3, C] bf16
     (folded, tap-major); b1, b2 [C] fp32.  With the default plan it calls
-    the custom op ``egonet::fused_basic_block_stencil``: a CPU tensor goes
-    through :func:`fused_basic_block_reference`; a CUDA tensor launches
-    the kernel on the calling thread's current stream or raises.
-    ``tile`` overrides :func:`tile_for` (a full tile, or (TW, NB) with the
-    rest of the default) with a plan whose kernel variant the default
-    library holds, launched directly (not through the op); another
-    raises."""
+    the operator ``egonet::fused_basic_block_stencil``: a CPU tensor goes
+    through the plain version; a CUDA tensor launches the kernel on the
+    current stream of x's device or raises.  ``tile`` overrides
+    :func:`tile_for` (a full tile, or (TW, NB) with the rest of the
+    default) with a plan whose kernel variant the default library holds,
+    launched directly (not through the op); another raises."""
     if tile is None or x.device.type == "cpu":
-        return torch.ops.egonet.fused_basic_block_stencil(x, w1, b1, w2, b2)
+        _build.load_ops(x.device.type)
+        return torch.ops.egonet.fused_basic_block_stencil.default(
+            x, w1, b1, w2, b2)
     return _op_cuda(x, w1, b1, w2, b2, tile)
 
 
-@torch.library.custom_op("egonet::fused_basic_block_stencil",
-                         mutates_args=(), device_types="cuda")
-def _stencil_cuda(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                  w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    return _op_cuda(x, w1, b1, w2, b2)
-
-
 def _op_cuda(x, w1, b1, w2, b2, tile=None):
-    """The CUDA body (the op's, or a ``tile`` override's), under x's
-    device: the launcher's cluster-occupancy query and the launch act on
-    the card that holds the operands, not on the thread's current one."""
+    """A ``tile`` override's launch, under x's device: the launcher's
+    cluster-occupancy query and the launch act on the card that holds the
+    operands, not on the thread's current one."""
     with torch.cuda.device(x.device):
         _check(x, w1, b1, w2, b2)
         _check_width(x.shape[3])
         return _launch(x, w1, b1, w2, b2,
                        *_default_launcher(plan_for(x.shape[3], tile)))
-
-
-@_stencil_cuda.register_kernel("cpu")
-def _stencil_cpu(x, w1, b1, w2, b2):
-    return fused_basic_block_reference(x, w1, b1, w2, b2)
-
-
-@_stencil_cuda.register_fake
-def _stencil_fake(x, w1, b1, w2, b2):
-    _check_shapes(x, w1, b1, w2, b2)
-    _check_width(x.shape[3])
-    return torch.empty_like(x)
 
 
 def _launch(x, w1, b1, w2, b2, plan, struct, fn) -> torch.Tensor:
@@ -421,11 +407,8 @@ def _launch(x, w1, b1, w2, b2, plan, struct, fn) -> torch.Tensor:
         raise RuntimeError(
             f"fused_basic_block_stencil launch failed: CUDA error {err} "
             f"(N={n} H={h} W={w} C={c} plan={plan})")
-    fused_basic_block_stencil.launches += 1
+    _build.add_launch(_build.STENCIL)
     return y
-
-
-fused_basic_block_stencil.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
-"""Both fused BasicBlock kernels as torch custom ops, and the port's AOT
+"""Both fused BasicBlock kernels as torch operators, and the port's AOT
 export (``egonet_tpu_torch/io/export.py``, ``tools/export_model.py``) on
 the CPU.
 
-``torch.library.opcheck`` holds each op's schema, fake implementation and
-CPU implementation (the plain version) to each other.  The exported
+``torch.library.opcheck`` holds each op's schema, Meta kernel and CPU
+kernel (the plain version; all three C++, ``csrc/egonet_ops.cpp``) to
+each other.  The exported
 programs of a shrunk HRNet in bf16 (widths 16/32/64/128: the kernels'
 contract takes multiples of 16) must reproduce the live ``EgoNet._core``
 bit for bit on the CPU — with the model's weights and with a second seeded
@@ -23,6 +24,7 @@ import torch
 from egonet_tpu_torch.config import demo_config
 from egonet_tpu_torch.io import checkpoint, export
 from egonet_tpu_torch.models.egonet import EgoNet
+from egonet_tpu_torch.ops import _build
 from egonet_tpu_torch.ops import fused_block as fb
 from tests import fixtures
 
@@ -68,6 +70,13 @@ def _inputs(bucket, seed=0):
     return images, torch.from_numpy(meta)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _ops():
+    """The operators load at first use (``_build.load_ops``), not at
+    import: load them before a test calls ``torch.ops.egonet``."""
+    _build.load_ops("cpu")
+
+
 @pytest.fixture(scope="module")
 def model():
     return EgoNet(_cfg(), device="cpu")
@@ -104,7 +113,7 @@ def test_opcheck(rng, op, shape):
 
 
 def test_fake_checks_the_contract(rng):
-    """The fake implementation refuses what the kernel refuses, without
+    """The Meta kernel refuses what the kernel refuses, without
     data: a width no multiple of 16, fp32 activations, a stencil wider
     than 384."""
     from torch._subclasses.fake_tensor import FakeTensorMode

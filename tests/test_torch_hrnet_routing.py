@@ -5,13 +5,17 @@ for it (``fused_block.takes`` / ``fused_block_stencil.takes``: C % 16 ==
 0, C at most the kernel's ``_MAX_C``, a tile that fits).  The HRNet folds
 and fuses only those blocks and runs the others unfused, on every device.
 Here the CUDA route is mocked on the CPU: the public wrapper runs the
-op's CUDA body (``_op_cuda``) with the kernel's own operand checks, and
-the launch computes the plain version, counted by width.  A block the
-kernel does not take would raise in those checks, as it did on the card
-before the routing looked at the width.
+kernel's CUDA path with its own operand checks — for the tiled kernel a
+stand-in of the C++ operator's (``csrc/egonet_ops_cuda.cpp``: the checks,
+then the width's default plan from the table ``_build`` generates for it,
+a width without one raising), for the stencil its ``_op_cuda`` — and the
+launch computes the plain version, counted by width.  A block the kernel
+does not take would raise in those checks, as it did on the card before
+the routing looked at the width.
 """
 
 import contextlib
+import re
 
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ import torch
 from egonet_tpu_torch import config as tcfg
 from egonet_tpu_torch.models import hrnet as th
 from egonet_tpu_torch.models.init import numpy_init
+from egonet_tpu_torch.ops import _build
 from egonet_tpu_torch.ops import fused_block as fb
 from egonet_tpu_torch.ops import fused_block_stencil as st
 
@@ -29,6 +34,32 @@ WIDTHS = {"gate": (8, 16, 32, 64), "w18": (18, 36, 72, 144),
           "w48": (48, 96, 192, 384), "w64": (64, 128, 256, 512)}
 
 
+def _plan_table(macro):
+    """{C: plan fields} of the CUDA operator's plan table for one kernel
+    (``_build._plans_prelude``, macro TILED or STENCIL)."""
+    line = next(ln for ln in _build._plans_prelude().splitlines()
+                if ln.startswith(f"#define EGONET_{macro}_PLANS(X) "))
+    rows = re.findall(r"X\(([^)]*)\)", line.split(" ", 2)[2])
+    table = {}
+    for row in rows:
+        c, *fields = map(int, row.split(","))
+        table[c] = fields
+    return table
+
+
+def _tiled_cuda(x, w1, b1, w2, b2):
+    """What the C++ operator's CUDA kernel does for the tiled kernel: the
+    operand checks, the width's default plan from its table (raising
+    where it has none), the launch."""
+    fb._check(x, w1, b1, w2, b2)
+    fields = _plan_table("TILED").get(x.shape[3])
+    if fields is None:
+        raise ValueError(f"no default plan at C={x.shape[3]}")
+    plan = fb.plan_for(x.shape[3])
+    assert fields == [getattr(plan, f) for f in fb._PLAN_FIELDS]
+    return fb._launch(x, w1, b1, w2, b2, plan, None, None)
+
+
 def _wrapper(module):
     return getattr(module, "fused_basic_block" if module is fb
                    else "fused_basic_block_stencil")
@@ -36,7 +67,7 @@ def _wrapper(module):
 
 @pytest.fixture
 def cuda_route(monkeypatch):
-    """Route both public wrappers through their op's CUDA body with
+    """Route both public wrappers through their kernel's CUDA path with
     torch.cuda mocked; each launch runs the plain version and is counted
     by (kernel, C).  Returns the counts."""
     counts = {}
@@ -55,7 +86,8 @@ def cuda_route(monkeypatch):
             (lambda c: (fb.plan_for(c), None, None)) if module is fb
             else (lambda plan: (plan, None, None)))
         monkeypatch.setattr(module, _wrapper(module).__name__,
-                            lambda x, *w, m=module: m._op_cuda(x, *w))
+                            _tiled_cuda if module is fb
+                            else (lambda x, *w: st._op_cuda(x, *w)))
     return counts
 
 

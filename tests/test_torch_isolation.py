@@ -65,6 +65,49 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert not bad, bad
 
 
+def test_cpp_sources_include_nothing_of_jax_or_the_jax_package():
+    """The operators' C++ (csrc/egonet_ops*.cpp, egonet_ops.h) includes
+    torch's, CUDA's and the standard headers and its own, nothing else."""
+    csrc = os.path.join(ROOT, "egonet_tpu_torch", "csrc")
+    sources = [f for f in os.listdir(csrc) if f.endswith((".cpp", ".h"))]
+    assert sorted(sources) == ["egonet_ops.cpp", "egonet_ops.h",
+                               "egonet_ops_cuda.cpp"]
+    allowed = ("ATen/", "c10/", "torch/library.h", "egonet_ops.h")
+    bad = []
+    for name in sources:
+        with open(os.path.join(csrc, name)) as f:
+            for line in f:
+                if not line.startswith("#include"):
+                    continue
+                header = line.split()[1].strip('<>"')
+                if "jax" in header or "egonet_tpu/" in header or (
+                        "/" in header and not header.startswith(allowed)):
+                    bad.append(f"{name}: {line.strip()}")
+                if header.startswith("torch/") and header != "torch/library.h":
+                    bad.append(f"{name}: {line.strip()} (not torch/library.h)")
+    assert not bad, bad
+
+
+def test_export_loading_half_imports_no_ops_or_models():
+    """io/export.py's module-level imports and the loading half
+    (load_exported, load_op_libraries, weights_for, bind) import nothing of
+    egonet_tpu_torch.ops or egonet_tpu_torch.models (the export half may)."""
+    path = os.path.join(ROOT, "egonet_tpu_torch", "io", "export.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    loading = {"load_exported", "load_op_libraries", "_has_kernel",
+               "weights_for", "bind"}
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert loading <= set(fns)
+    scopes = [n for n in tree.body if not isinstance(
+        n, (ast.FunctionDef, ast.ClassDef))] + [fns[n] for n in loading]
+    names = [name for scope in scopes
+             for name, _ in _imports(ast.Module(body=[scope],
+                                                type_ignores=[]))]
+    assert names and not [n for n in names if n.startswith(
+        ("egonet_tpu_torch.ops", "egonet_tpu_torch.models"))], names
+
+
 def test_entry_point_defaults_to_cuda_and_raises_without_it(monkeypatch):
     from egonet_tpu_torch.config import (demo_config, train_igrs_config,
                                          train_lifting_config)

@@ -232,9 +232,11 @@ class _Guard:
 
 @pytest.mark.parametrize("module", [fb, st], ids=["tiled", "stencil"])
 def test_launches_run_under_the_operands_device(monkeypatch, module):
-    """With torch.cuda mocked, the op's CUDA body and the launch itself
-    find the operands' device current (not the thread's): the launcher's
-    first build (the stencil's occupancy query) and the kernel call."""
+    """With torch.cuda mocked, a direct launch, and the stencil's ``tile=``
+    override with its launcher's first build (the occupancy query), find
+    the operands' device current (not the thread's).  The operators' CUDA
+    kernels hold x's device with a CUDAGuard (csrc/egonet_ops_cuda.cpp),
+    which only the card runs."""
     seen = []
     monkeypatch.setattr(torch.cuda, "device", _Guard)
     monkeypatch.setattr(
@@ -259,9 +261,11 @@ def test_launches_run_under_the_operands_device(monkeypatch, module):
     x = torch.zeros(1, 8, 8, c, dtype=torch.bfloat16)
     w = torch.zeros(c, 3, 3, c, dtype=torch.bfloat16)
     b = torch.zeros(c)
-    module._op_cuda(x, w, b, w, b)
-    assert seen == [("launcher", x.device), ("stream", x.device, x.device),
-                    ("launch", x.device)], seen
-    seen.clear()
+    if module is st:
+        module._op_cuda(x, w, b, w, b)
+        assert seen == [("launcher", x.device),
+                        ("stream", x.device, x.device),
+                        ("launch", x.device)], seen
+        seen.clear()
     module._launch(x, w, b, w, b, "plan", "struct", entry)
     assert seen == [("stream", x.device, x.device), ("launch", x.device)]
