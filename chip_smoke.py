@@ -171,6 +171,18 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    inference CLI in fp32 and the evaluator: AP / AOS R11 easy).  No fused
    kernel runs there (the donors train in fp32; PoseNetTPU has no
    BasicBlock).
+9i. Trained-loop phase (``trained_loop`` line): the from-scratch trained
+   closed loop of both shrunk families (``tools/trained_closed_loop``, the
+   port of tests/test_trained_closed_loop.py) cut to TRAINED_LOOP_ARGS
+   (TRAINED_LOOP_CUTS): the HRNet and PoseNetTPU trained from scratch on
+   the card, the shared lifter, then the inference CLI on the
+   detector-box path in fp32 and in bf16, the HRNet through the tiled
+   kernel and through the stencil (counts set to 0 before each leg and
+   read after it: each kernel's launches equal the blocks the model routes
+   to it, 6 a forward, times its forwards, and are more than 0); every
+   leg's AP_R11 easy above 99 and AOS_R11 easy at its family's
+   TRAINED_LOOP_AOS_MIN or above, the C++ evaluator's AOS equal to the
+   Python one.
 10. Prints one JSON line per kernel shape and phase, both kernels' earlier
    times per forward (past figures from PERF.md, labelled so), the
    {"kernels": [...]} line (every number in it measured or, for
@@ -180,7 +192,8 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    ``serve_launches`` / ``served_batches``, the exported programs'
    launches per call, the mesh phase's launches under ``mesh_launches``,
    the gate phase's under ``gate_launches`` and its shapes under
-   ``gate_shapes``),
+   ``gate_shapes``, the trained-loop phase's under
+   ``trained_loop_launches``),
    each phase's seconds (``phase_s``), the run's seconds, the card line,
    and last {"ok": true, "device": {...}}.
 
@@ -190,6 +203,9 @@ Any failure raises (non-zero exit).
 ``python3 chip_smoke.py --gate-donors DIR`` runs only the gate phase (9g),
 on the donors ``python -m egonet_tpu_torch.tools.make_gate_artifacts --out
 DIR`` trained, and ends with the same card and ``{"ok": true, ...}`` lines.
+``python3 chip_smoke.py --trained-loop`` runs only
+``tools/trained_closed_loop`` at its full recipe (both kernels built
+first), and ends the same way.
 """
 
 import copy
@@ -2578,6 +2594,51 @@ def scratch_phase(card):
     return row
 
 
+# the trained_loop phase: the tool's recipe on 96 of its 256 frames (its 60
+# epochs, its lifter and legs), so that both families, the lifter and the
+# five inference legs take about a minute on the card (the full recipe:
+# about three).  At that cut AOS_R11 easy stays under the recipe's 85: the
+# phase holds each family to a floor 5 points under the lowest leg of three
+# runs of this cut on the card (hrnet 74.57-81.32, native 60.53-64.19;
+# PERF.md section 5)
+TRAINED_LOOP_ARGS = ["--images", "96", "--epochs", "60"]
+TRAINED_LOOP_CUTS = ["frames 256 -> 96 (128 -> 48 trained, 128 -> 48 "
+                     "scored); epochs, lifter and legs as the recipe"]
+TRAINED_LOOP_AOS_MIN = {"hrnet": 69.56, "tpu_native": 55.52}
+
+
+def trained_loop_phase(torch, card):
+    """``tools/trained_closed_loop`` at TRAINED_LOOP_ARGS, each family's
+    AOS held to its TRAINED_LOOP_AOS_MIN (the tool's other bars as they
+    are: the loss bars, AP_R11 easy above 99, the C++ AOS equal to the
+    Python one, and each bf16 HRNet leg's launches of its kernel equal to
+    the blocks routed to it times its forwards, more than 0).  The row
+    holds each family's line (AP / AOS per leg, launches, seconds)."""
+    from egonet_tpu_torch.tools import trained_closed_loop as tcl
+    t_phase = time.perf_counter()
+    lines = tcl.main(TRAINED_LOOP_ARGS + [
+        "--aos-min", str(min(TRAINED_LOOP_AOS_MIN.values()))])
+    row = {"card": card, "args": TRAINED_LOOP_ARGS,
+           "cuts": TRAINED_LOOP_CUTS, "aos_min": TRAINED_LOOP_AOS_MIN,
+           "recipe_aos_min": tcl.AOS_EASY_MIN,
+           "families": {ln["family"]: ln for ln in lines},
+           "seconds": time.perf_counter() - t_phase}
+    print(json.dumps({"trained_loop": row}), flush=True)
+    for line in lines:
+        tcl.check(line, torch.device("cuda"),
+                  TRAINED_LOOP_AOS_MIN[line["family"]])
+    return row
+
+
+def trained_loop_only(torch, card):
+    """``--trained-loop``: ``tools/trained_closed_loop`` alone at its full
+    recipe and bars (it builds both kernels and the operators first)."""
+    from egonet_tpu_torch.tools import trained_closed_loop as tcl
+    tcl.main([])
+    _print_ok(torch, card)
+    return 0
+
+
 def gate_only(torch, np, fb, st, card, donor_dir):
     """``--gate-donors DIR``: the gate phase alone, on the donors that
     ``make_gate_artifacts --out DIR`` wrote (both kernels built first)."""
@@ -2625,6 +2686,9 @@ def main(argv=None) -> int:
                     help="run only the gate phase, on the donors in DIR "
                          "(python -m egonet_tpu_torch.tools."
                          "make_gate_artifacts --out DIR)")
+    ap.add_argument("--trained-loop", action="store_true",
+                    help="run only tools/trained_closed_loop at its full "
+                         "recipe")
     args = ap.parse_args(argv)
     import torch
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2651,6 +2715,8 @@ def main(argv=None) -> int:
     full_precision_fp32()
     if args.gate_donors:
         return gate_only(torch, np, fb, st, card, args.gate_donors)
+    if args.trained_loop:
+        return trained_loop_only(torch, card)
     sweep = sweep_plans(fb)
     sweep_lib = fb.library([p for plans in sweep.values() for _, p in plans])
     ssweep = stencil_sweep(st)
@@ -2742,6 +2808,8 @@ def main(argv=None) -> int:
     gate = timed("gate", gate_phase, torch, np, fb, st, card)
     torch.cuda.empty_cache()
     timed("scratch", scratch_phase, card)
+    torch.cuda.empty_cache()
+    trained = timed("trained_loop", trained_loop_phase, torch, card)
 
     assert sum(PER_FORWARD.values()) == result["launches_per_forward"]
     print(json.dumps({"earlier": EARLIER}), flush=True)
@@ -2786,6 +2854,13 @@ def main(argv=None) -> int:
         entry["gate_launches"] = {k: v for k, v in gate["launches"].items()
                                   if k.endswith("/" + path)}
         entry["gate_shapes"] = _shapes(gate["kernel_rows"][name])
+        # the trained-loop phase: launches of its bf16 HRNet leg through
+        # this kernel, its forwards and launches per forward
+        hr = trained["families"]["hrnet"]
+        entry["trained_loop_launches"] = {
+            "launches": hr["launches"][path][name],
+            "forwards": hr["launches"][path]["forwards"],
+            "per_forward": hr["launches_per_forward"][name]}
         entry["max_abs_err"] = max(entry["max_abs_err"], max(
             r["max_abs_err"] for r in gate["kernel_rows"][name]))
         entries.append(entry)

@@ -3,9 +3,10 @@ YAML loading and the entry points' command line.
 
 A GPU host may lack PyYAML, so :func:`demo_config`,
 :func:`train_lifting_config`, :func:`train_igrs_config`,
-:func:`train_igrs_ped_config` and :func:`tpu_native_config` need no YAML
-at all and :func:`load_config` imports ``yaml`` only when called (by
-:func:`parse_args`, when ``--cfg`` is read).  The dicts below equal
+:func:`train_igrs_ped_config`, :func:`tpu_native_config` and
+:func:`default_demo_config` need no YAML at all, and
+:func:`read_yaml_file` (through :func:`load_config`) imports ``yaml`` only
+when called (by :func:`parse_args`, when ``--cfg`` is read).  The dicts below equal
 ``yaml.safe_load`` of ``egonet_tpu/configs/KITTI_inference_demo.yml``,
 ``KITTI_train_lifting.yml``, ``KITTI_train_IGRs.yml``,
 ``KITTI_train_IGRs_Ped.yml`` and ``KITTI_tpu_native.yml`` (asserted by the
@@ -342,18 +343,35 @@ _DEFAULTS = {
 }
 
 
-def load_config(path: str, overrides: dict | None = None) -> dict:
-    """Read a reference-schema YAML config (needs PyYAML), fill the keys of
-    ``_DEFAULTS`` it lacks, and lay ``overrides`` over it
-    (:func:`merge_config`)."""
+def read_yaml_file(path: str) -> dict:
+    """``yaml.safe_load`` of the file at ``path`` (needs PyYAML)."""
     import yaml
     with open(path, "r") as f:
-        cfgs = yaml.safe_load(f)
+        return yaml.safe_load(f)
+
+
+def load_config(path: str, overrides: dict | None = None) -> dict:
+    """Read a reference-schema YAML config (:func:`read_yaml_file`), fill
+    the keys of ``_DEFAULTS`` it lacks, and lay ``overrides`` over it
+    (:func:`merge_config`)."""
+    cfgs = read_yaml_file(path)
     cfgs["config_path"] = path
     for key, val in _DEFAULTS.items():
         cfgs.setdefault(key, val)
     if overrides:
         cfgs = merge_config(cfgs, overrides)
+    return cfgs
+
+
+def default_demo_config() -> dict:
+    """The shipped inference configuration as :func:`load_config` returns
+    it from ``KITTI_inference_demo.yml`` (:func:`demo_config` with the keys
+    of ``_DEFAULTS``), without YAML or a file: so it has no
+    ``config_path``, which the inference CLI would copy into its output
+    directory."""
+    cfgs = demo_config()
+    for key, val in _DEFAULTS.items():
+        cfgs.setdefault(key, val)
     return cfgs
 
 

@@ -11,7 +11,8 @@ and a flax ``ConvTranspose`` kernel with ``transpose_kernel`` ((kh, kw,
 out, in) -> torch's [in, out, kh, kw]); BatchNorm1d keys are a BN's.
 ``to_jax_variables`` is the inverse (a copy of ``torch_convert.py``'s
 ``torch_to_flax``): flax has no ``num_batches_tracked``, so a round trip
-returns it as 0.
+returns it as 0.  ``check_conversion`` lists where a converted tree's
+structure or shapes differ from a model's.
 """
 
 from __future__ import annotations
@@ -98,6 +99,37 @@ def to_jax_variables(state_dict: dict) -> dict:
     if batch_stats:
         out["batch_stats"] = batch_stats
     return out
+
+
+def check_conversion(variables: dict, converted: dict) -> list:
+    """Compare the tree structure and leaf shapes of ``converted`` (a
+    converted checkpoint, nested dicts) against ``variables`` (a freshly
+    initialised model's); returns the mismatches as strings, in the JAX
+    package's words and order (``torch_convert.check_conversion``), empty
+    when everything matches."""
+    problems = []
+
+    def walk(a, b, path):
+        if isinstance(a, dict) != isinstance(b, dict):
+            problems.append(f"{path}: structure mismatch")
+            return
+        if isinstance(a, dict):
+            for k in a:
+                if k not in b:
+                    problems.append(f"{path}/{k}: missing in checkpoint")
+                else:
+                    walk(a[k], b[k], f"{path}/{k}")
+            for k in b:
+                if k not in a:
+                    problems.append(f"{path}/{k}: unexpected in checkpoint")
+        else:
+            # tuples, so that a tensor's torch.Size prints as numpy's shape
+            sa, sb = tuple(np.shape(a)), tuple(np.shape(b))
+            if sa != sb:
+                problems.append(f"{path}: shape {sb} != expected {sa}")
+
+    walk(variables, converted, "")
+    return problems
 
 
 def load_torch_state_dict(path: str) -> dict:

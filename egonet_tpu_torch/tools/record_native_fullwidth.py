@@ -27,58 +27,7 @@ import os
 import tempfile
 import time
 
-import numpy as np
-
 from egonet_tpu_torch.tools import synthetic_world as sw
-
-
-def _train_heatmap(cfg, epochs, device):
-    """The IGR model trained from the JAX package's seed-0 initial values,
-    the cross-ratio on from epoch 1; returns its train state."""
-    from egonet_tpu_torch.data import kitti
-    from egonet_tpu_torch.data.loader import IGRBatchLoader
-    from egonet_tpu_torch.train.igrs import IGRTrainer
-    ds = kitti.KITTIDataset(cfg, "train")
-    loader = IGRBatchLoader(ds.records, cfg, train=True, max_instances=16,
-                            seed=0)
-    trainer = IGRTrainer(cfg, steps_per_epoch=len(loader), device=device)
-    state = trainer.init_state(0)
-    t0 = time.time()
-    first = last = None
-    for ep in range(epochs):
-        for batch in loader.epoch():
-            state, metrics = trainer.train_step(state, batch,
-                                                apply_cr=ep >= 1)
-        last = float(metrics["loss"])
-        first = first if first is not None else last
-        if ep < 2 or ep % 10 == 9:
-            print(f"epoch {ep}: loss {last:.4f} ({time.time() - t0:.0f}s)",
-                  flush=True)
-    assert last < first * 0.5, (first, last)
-    return state
-
-
-def _train_lifter(root, device):
-    """The lifter (66 -> 96, 256 neurons, x40 pose augmentation, 150
-    epochs); returns (state, its config, the training set)."""
-    from egonet_tpu_torch import config as tcfg
-    from egonet_tpu_torch.data import kitti
-    from egonet_tpu_torch.train.lifting import LiftingTrainer
-    lcfg = tcfg.train_lifting_config()
-    lcfg["dataset"]["root"] = root
-    lcfg["training_settings"].update({"total_epochs": 150,
-                                      "batch_size": 128,
-                                      "lft_aug_times": 40})
-    lcfg["FCModel"].update({"input_size": 66, "output_size": 96,
-                            "num_neurons": 256, "dropout": 0.0})
-    lcfg["optimizer"]["milestones"] = [60, 100]
-    train_set, _valid = kitti.prepare_data(lcfg)
-    lt = LiftingTrainer(lcfg,
-                        steps_per_epoch=max(1, len(train_set.input) // 128),
-                        device=device)
-    lstate, lhist = lt.fit(train_set)
-    assert lhist[-1]["loss"] < lhist[0]["loss"] * 0.33
-    return lstate, lcfg, train_set
 
 
 def main(argv=None, device=None) -> dict:
@@ -102,18 +51,14 @@ def main(argv=None, device=None) -> dict:
         card = "cpu"
     print(f"device: {card}", flush=True)
     with tempfile.TemporaryDirectory(prefix="native_fw_") as tmp:
-        rng = np.random.RandomState(3)
-        scenes = [sw.random_cars(rng, 3) for _ in range(args.images)]
-        root, pred_dir = sw.make_kitti_root(
-            tmp, n_images=args.images, with_predictions=True,
-            classes_per_image=scenes)
+        root, pred_dir = sw.make_cars_world(tmp, args.images)
 
         # ---- heatmap model: the shipped config, backbone verbatim -------
         cfg = tcfg.tpu_native_config()
         cfg["dataset"]["root"] = root
         sw.gate_train_stanza(cfg)     # crop chain aligned with submission
         t0 = time.time()
-        state = _train_heatmap(cfg, args.epochs, dev)
+        state, _losses = sw.train_heatmap(cfg, args.epochs, dev)
         train_s = time.time() - t0
         ck = os.path.join(tmp, "ckpt")
         checkpoint.save_torch_state_dict(os.path.join(ck, "HC.pth"),
@@ -122,7 +67,7 @@ def main(argv=None, device=None) -> dict:
 
         # ---- lifter -----------------------------------------------------
         t0 = time.time()
-        lstate, lcfg, train_set = _train_lifter(root, dev)
+        lstate, lcfg, train_set, _lhist = sw.train_lifter(root, dev)
         lifter_s = time.time() - t0
         checkpoint.save_torch_state_dict(os.path.join(ck, "L.pth"),
                                          lstate.model)

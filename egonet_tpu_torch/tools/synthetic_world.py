@@ -2,8 +2,9 @@
 calibrations, splits and detector txts, plus the closed-loop gate's
 recipes (its world, shrink and training stanza) and the donor probe.
 
-The two from-scratch tools (``make_gate_artifacts``,
-``record_native_fullwidth``) train on it, and the gate
+The from-scratch tools (``make_gate_artifacts``,
+``record_native_fullwidth``, ``trained_closed_loop``) train on it with the
+recipes below, and the gate
 (``tests/torch_gate.py``) fine-tunes and scores on it.  It writes the same
 files as the JAX package's test fixture (``tests/fixtures.py``): the
 same scenes, label lines, calibrations, splits and detector txts byte for
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import colorsys
 import os
+import time
 
 import numpy as np
 
@@ -219,6 +221,86 @@ def make_kitti_root(tmpdir, n_images=2, with_predictions=False,
                 f.write("\n".join(_label_line(r, score=0.9 - 0.1 * j)
                                   for j, r in enumerate(recs)) + "\n")
     return root, pred_dir
+
+
+# --------------------------------------------------------------------------
+# The from-scratch closed loops' world and training recipes
+# (``record_native_fullwidth``, ``trained_closed_loop``): the JAX package's
+# trained-loop fixture (tests/test_trained_closed_loop.py) and its
+# full-width tool train the same way.
+# --------------------------------------------------------------------------
+
+CARS_SEED = 3
+CARS_PER_IMAGE = 3
+
+
+def make_cars_world(tmpdir, n_images):
+    """``n_images`` keypoint-drawn frames of ``CARS_PER_IMAGE`` random cars
+    each (``random_cars`` on ``RandomState(CARS_SEED)``), with detector
+    txts.  Returns (root, pred_dir)."""
+    rng = np.random.RandomState(CARS_SEED)
+    scenes = [random_cars(rng, CARS_PER_IMAGE) for _ in range(n_images)]
+    return make_kitti_root(tmpdir, n_images=n_images, with_predictions=True,
+                           classes_per_image=scenes)
+
+
+def train_heatmap(cfg, epochs, device):
+    """The IGR model of ``cfg`` trained from the JAX package's seed-0
+    initial values (loader seed 0, 16 instances a batch), the cross-ratio
+    on from epoch 1; asserts that the last epoch's loss is under half the
+    first's.  Returns (its train state, each epoch's last loss)."""
+    from egonet_tpu_torch.data import kitti
+    from egonet_tpu_torch.data.loader import IGRBatchLoader
+    from egonet_tpu_torch.train.igrs import IGRTrainer
+    ds = kitti.KITTIDataset(cfg, "train")
+    loader = IGRBatchLoader(ds.records, cfg, train=True, max_instances=16,
+                            seed=0)
+    trainer = IGRTrainer(cfg, steps_per_epoch=len(loader), device=device)
+    state = trainer.init_state(0)
+    t0 = time.time()
+    losses = []
+    for ep in range(epochs):
+        for batch in loader.epoch():
+            state, metrics = trainer.train_step(state, batch,
+                                                apply_cr=ep >= 1)
+        losses.append(float(metrics["loss"]))
+        if ep < 2 or ep % 10 == 9:
+            print(f"epoch {ep}: loss {losses[-1]:.4f} "
+                  f"({time.time() - t0:.0f}s)", flush=True)
+    assert losses[-1] < losses[0] * 0.5, (losses[0], losses[-1])
+    return state, losses
+
+
+def lifter_config(root):
+    """The lifter recipe on ``root``: 66 -> 96, 256 neurons, no dropout,
+    x40 pose augmentation, 150 epochs of 128, milestones [60, 100]."""
+    from egonet_tpu_torch import config as tcfg
+    lcfg = tcfg.train_lifting_config()
+    lcfg["dataset"]["root"] = root
+    lcfg["training_settings"].update({"total_epochs": 150,
+                                      "batch_size": 128,
+                                      "lft_aug_times": 40})
+    lcfg["FCModel"].update({"input_size": 66, "output_size": 96,
+                            "num_neurons": 256, "dropout": 0.0})
+    lcfg["optimizer"]["milestones"] = [60, 100]
+    return lcfg
+
+
+def train_lifter(root, device):
+    """The lifter of :func:`lifter_config` trained on ``root``'s train
+    split; asserts that the last epoch's loss is under a third of the
+    first's.  Returns (state, its config, the training set, the
+    history)."""
+    from egonet_tpu_torch.data import kitti
+    from egonet_tpu_torch.train.lifting import LiftingTrainer
+    lcfg = lifter_config(root)
+    train_set, _valid = kitti.prepare_data(lcfg)
+    lt = LiftingTrainer(lcfg,
+                        steps_per_epoch=max(1, len(train_set.input) // 128),
+                        device=device)
+    lstate, lhist = lt.fit(train_set)
+    assert lhist[-1]["loss"] < lhist[0]["loss"] * 0.33
+    return lstate, lcfg, train_set, lhist
 
 
 # --------------------------------------------------------------------------

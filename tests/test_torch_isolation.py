@@ -45,7 +45,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     for new in ("parallel/mesh.py", "io/train_ckpt.py",
                 "tools/dryrun_multigpu.py", "tools/synthetic_world.py",
                 "tools/make_gate_artifacts.py",
-                "tools/record_native_fullwidth.py"):
+                "tools/record_native_fullwidth.py",
+                "tools/trained_closed_loop.py"):
         assert os.path.join(ROOT, "egonet_tpu_torch", new) in files, new
     bad = []
     for path in files:
@@ -143,16 +144,18 @@ def test_entry_point_defaults_to_cuda_and_raises_without_it(monkeypatch):
     # the from-scratch tools: before any world is drawn or donor read
     from egonet_tpu_torch.tools import (make_gate_artifacts,
                                         record_native_fullwidth,
-                                        synthetic_world)
+                                        synthetic_world, trained_closed_loop)
 
     def no_data(*args, **kwargs):
         raise AssertionError("read or wrote data before resolving the card")
     for name in ("make_kitti_root", "make_gate_fixture",
-                 "measure_donor_zero_shot"):
+                 "measure_donor_zero_shot", "make_cars_world"):
         monkeypatch.setattr(synthetic_world, name, no_data)
     for argv in ([], ["--sidecar-only"]):
         with pytest.raises(RuntimeError, match="CUDA"):
             make_gate_artifacts.main(argv)
     with pytest.raises(RuntimeError, match="CUDA"):
         record_native_fullwidth.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trained_closed_loop.main([])
     assert resolve_device("cpu") == torch.device("cpu")

@@ -1,13 +1,17 @@
 """The last small pieces of the JAX package the port lacked, each held
 against its JAX function on the same inputs: ``KITTIDataset.show_annot``,
 ``config.load_config(path, overrides)`` / ``merge_config`` / ``_DEFAULTS``,
+``config.read_yaml_file`` / ``default_demo_config``,
 ``io/kitti_writer.apolloscape_str``, ``ImageStore.nbytes``,
-``utils/logger.AverageMeter`` and ``constants.compute_cr_indices``."""
+``utils/logger.AverageMeter``, ``constants.compute_cr_indices`` and
+``io/weights.check_conversion`` (``io/torch_convert.py``'s)."""
 
+import copy
 import os
 
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from egonet_tpu import config as jcfg
@@ -15,6 +19,7 @@ from egonet_tpu import constants as jconst
 from egonet_tpu.data import image_store as jstore
 from egonet_tpu.data import kitti as jkitti
 from egonet_tpu.io import kitti_writer as jwriter
+from egonet_tpu.io import torch_convert as jconvert
 from egonet_tpu.utils import logger as jlogger
 from egonet_tpu_torch import config as tcfg
 from egonet_tpu_torch import constants as tconst
@@ -22,6 +27,7 @@ from egonet_tpu_torch.data import image_store as tstore
 from egonet_tpu_torch.data import kitti as tkitti
 from egonet_tpu_torch.data.png import decode as png_decode
 from egonet_tpu_torch.io import kitti_writer as twriter
+from egonet_tpu_torch.io import weights as tweights
 from egonet_tpu_torch.utils import logger as tlogger
 from tests import fixtures
 
@@ -85,6 +91,74 @@ def test_load_config_with_overrides_equals_jax(name, tmp_path):
     merged = tcfg.merge_config(base, overrides)
     assert merged == jcfg.merge_config(base, overrides)
     assert base == yaml.safe_load(open(path))
+
+
+@pytest.mark.parametrize("name", sorted(os.listdir(CONFIGS)))
+def test_read_yaml_file_equals_jax(name):
+    path = os.path.join(CONFIGS, name)
+    got = tcfg.read_yaml_file(path)
+    assert got == jcfg.read_yaml_file(path)
+    assert "config_path" not in got and got["dataset"]
+
+
+def test_default_demo_config_equals_jax():
+    """The JAX loader's dict of the demo YAML, without ``config_path`` (the
+    port reads no file for it, and the inference CLI would copy the file
+    that key names); a fresh dict each call."""
+    got = tcfg.default_demo_config()
+    ref = jcfg.default_demo_config()
+    assert ref.pop("config_path").endswith("KITTI_inference_demo.yml")
+    assert got == ref
+    assert {k: got[k] for k in tcfg._DEFAULTS} == tcfg._DEFAULTS
+    got["dataset"]["root"] = "elsewhere"
+    assert tcfg.default_demo_config() == ref
+
+
+def _lifter_variables():
+    """The flax tree of a small lifter (numpy leaves)."""
+    from egonet_tpu_torch.models.fc_lifter import FCModel
+    model = FCModel(input_size=4, output_size=6, num_neurons=8,
+                    num_blocks=1)
+    return tweights.to_jax_variables(model.state_dict())
+
+
+def _mutated(case):
+    variables = _lifter_variables()
+    converted = copy.deepcopy(variables)
+    params = converted["params"]
+    first = next(k for k in sorted(params) if "kernel" in params[k])
+    if case == "missing":
+        del params[first]["bias"]
+        del converted["batch_stats"]
+    elif case == "unexpected":
+        params["extra_layer"] = {"kernel": np.zeros((2, 2), np.float32)}
+        params[first]["extra_leaf"] = np.zeros(3, np.float32)
+    elif case == "structure":
+        params[first] = np.zeros(3, np.float32)
+        converted["batch_stats"] = {"x": {"mean": {}}}
+    elif case == "shape":
+        params[first]["kernel"] = params[first]["kernel"][:, :-1]
+        params[first]["bias"] = params[first]["bias"][None]
+    return variables, converted
+
+
+@pytest.mark.parametrize("case", ["match", "missing", "unexpected",
+                                  "structure", "shape"])
+def test_check_conversion_equals_jax(case):
+    """The same mismatch strings, in the same order, from both packages;
+    tensor leaves give the strings numpy leaves do."""
+    variables, converted = _mutated(case)
+    got = tweights.check_conversion(variables, converted)
+    assert got == jconvert.check_conversion(variables, converted)
+    assert bool(got) == (case != "match"), got
+    as_tensors = copy.deepcopy(converted)
+
+    def tensors(tree):
+        for k, v in tree.items():
+            tree[k] = tensors(v) if isinstance(v, dict) else \
+                torch.from_numpy(np.asarray(v))
+        return tree
+    assert tweights.check_conversion(variables, tensors(as_tensors)) == got
 
 
 def test_apolloscape_str_equals_jax():

@@ -24,7 +24,6 @@ import shutil
 import subprocess
 
 import numpy as np
-import torch
 
 from egonet_tpu_torch.tools import synthetic_world as sw
 from egonet_tpu_torch.tools.make_gate_artifacts import DONORS as DONOR_FILES
@@ -280,12 +279,6 @@ def merge_submissions(dirs, out_dir):
 def fused_blocks_per_forward(tag, stencil):
     """How many blocks of the ``tag`` job's shrunk bf16 model the chosen
     kernel runs (the native family has none), from the model's own
-    routing (built on the meta device)."""
-    if BACKBONE[tag] != "hrnet":
-        return 0
-    from egonet_tpu_torch import config as tcfg
-    from egonet_tpu_torch.models.hrnet import build_hrnet
-    cfg = sw.gate_shrink("hrnet")(tcfg.demo_config())
-    with torch.device("meta"):
-        net = build_hrnet(cfg, dtype=torch.bfloat16)
-    return sum(1 for _ in net._fusable_blocks(stencil))
+    routing (``trained_closed_loop.fused_blocks``: the same shrink)."""
+    from egonet_tpu_torch.tools.trained_closed_loop import fused_blocks
+    return fused_blocks(BACKBONE[tag], stencil)
