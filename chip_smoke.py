@@ -140,9 +140,11 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    32 on the one card, 104 tiled launches per shard by the counter, then
    104 stencil launches per shard with the stencil selected, each held
    against the single-device facade on the same batch (median |d ry| and
-   |d alpha| at most 0.05 deg, max 0.5); then 32 requests served through a
-   PoseServer over the mesh (104 tiled launches per shard of every
-   micro-batch), held against the single-device facade.
+   |d alpha| at most 0.05 deg, max 0.5), and one dispatch of each facade
+   (single, two shards) run under ``torch.cuda.set_sync_debug_mode
+   ("error")``: the dispatch path makes no host synchronisation; then 32
+   requests served through a PoseServer over the mesh (104 tiled launches
+   per shard of every micro-batch), held against the single-device facade.
 9f. DP phase (``dp`` line): ``tools/dryrun_multigpu`` with 2 ranks on
    cuda:0 over gloo (nccl refuses two ranks on one card), every leg (the
    W48 legs at full width), then one rank over nccl (the legs that hold
@@ -206,6 +208,28 @@ DIR`` trained, and ends with the same card and ``{"ok": true, ...}`` lines.
 ``python3 chip_smoke.py --trained-loop`` runs only
 ``tools/trained_closed_loop`` at its full recipe (both kernels built
 first), and ends the same way.
+``python3 chip_smoke.py --cards N`` runs only the multicard phase over
+the first N cards (an error when fewer are visible; nothing falls back to
+gloo, to cuda:0 or to a plain version), one ``multicard`` line per leg
+with its seconds, each card's name and nvidia-smi's name and power limit
+of each: ``build_race`` (N nccl ranks reach the operators' first use at
+once; the build lock lets one build, the others wait and load, each
+rank's seconds), ``kernels`` (both kernels on every card at the W48
+shapes against their plain version), ``mesh`` (the W48 slice through
+``EgoNet(mesh=make_mesh(N))`` against the single-card facade, tiled then
+stencil, 104 x N launches of the kernel in use, both dispatches under the
+sync debug mode; the overlap rows: each shard's device window on its card
+and the batch's wall time, at buckets 32 and 384), ``scaling`` (W48
+device-program crops/s at batch 32 / 128 / 384 and e2e crops/s over 1, 2
+and N cards in turns 1, N, 2, 2, N, 1, each the median of 5 windows),
+``serve`` (bench_serve's workload through ``tools/serve --devices`` 1 and
+N, every response against the offline facade), ``dryrun`` (the dry run
+over N nccl ranks, all 7 legs; from 3 cards also over 3 ranks, where the
+wrap padding runs) and ``train`` (the IGR and lifter trainers' fp64 first
+step at N ranks against one process at tests/test_torch_dp.py's bars, the
+W48 gradients' all-reduce seconds, both training CLIs on the synthetic
+world at N, 2 and 1 ranks: crops trained per second).  Then the card and
+``{"ok": true, ...}`` lines.
 """
 
 import copy
@@ -647,17 +671,18 @@ def stencil_kernel_phase(torch, fb, st, sweep, sweep_lib):
     return rows
 
 
-def _frames(np):
-    """Synthetic KITTI-sized frames, boxes, intrinsics and detector lines."""
+def _frames(np, n_frames=N_FRAMES, n_boxes=N_BOXES):
+    """Synthetic KITTI-sized frames, boxes, intrinsics and detector lines
+    (by default the slice's: N_FRAMES frames x N_BOXES boxes)."""
     rng = np.random.RandomState(0)
     K = np.array([[721.5, 0.0, 609.6], [0.0, 721.5, 172.9], [0.0, 0.0, 1.0]])
     annot = {"path": [], "boxes": [], "images": [], "K": [],
              "raw_txt_format": []}
-    for i in range(N_FRAMES):
-        x = rng.uniform(0, 1000, N_BOXES)
-        y = rng.uniform(120, 220, N_BOXES)
-        boxes = np.stack([x, y, x + rng.uniform(40, 240, N_BOXES),
-                          y + rng.uniform(30, 140, N_BOXES)], axis=1)
+    for i in range(n_frames):
+        x = rng.uniform(0, 1000, n_boxes)
+        y = rng.uniform(120, 220, n_boxes)
+        boxes = np.stack([x, y, x + rng.uniform(40, 240, n_boxes),
+                          y + rng.uniform(30, 140, n_boxes)], axis=1)
         annot["path"].append(f"frames/{i:06d}.png")
         annot["boxes"].append(boxes)
         annot["images"].append(rng.randint(0, 256, (375, 1242, 3),
@@ -1750,16 +1775,19 @@ EXPORT_BUCKETS = (16, 128)
 EXPORT_ANGLE_RAD = 1e-3
 
 
-def _serve_pass(torch, fb, st, model, payloads, settle, n_single):
-    """A warmed PoseServer over ``model`` driven by bench_serve.run, both
-    kernels' launch counts set to 0 just before and read just after.
-    Returns (the line, the timed pass's responses, {"tiled": n,
+def _server(model):
+    from egonet_tpu_torch.serving import PoseServer
+    return PoseServer(model, port=0, max_images=16,
+                      max_wait_ms=SERVE_WAIT_MS).start()
+
+
+def _serve_pass(torch, fb, st, server, payloads, settle, n_single):
+    """A started PoseServer, warmed, driven by bench_serve.run, both
+    kernels' launch counts set to 0 just before and read just after, then
+    stopped.  Returns (the line, the timed pass's responses, {"tiled": n,
     "stencil": n} over the whole run, batches over the whole run, warmup
     seconds)."""
-    from egonet_tpu_torch.serving import PoseServer
     from egonet_tpu_torch.tools import bench_serve
-    server = PoseServer(model, port=0, max_images=16,
-                        max_wait_ms=SERVE_WAIT_MS).start()
     try:
         t0 = time.perf_counter()
         server.warmup()
@@ -1825,7 +1853,7 @@ def serve_phase(torch, np, fb, st, card):
         payloads = bench_serve.make_payloads(paths, SERVE_REQUESTS,
                                              SERVE_BOXES)
         line, bodies, launches, batches, warm_s = _serve_pass(
-            torch, fb, st, model, payloads, settle=8, n_single=12)
+            torch, fb, st, _server(model), payloads, settle=8, n_single=12)
         assert launches == {"tiled": 104 * batches, "stencil": 0}, (
             launches, batches)
         assert line["fused_launches"] == 104 * line["batches"] > 0, line
@@ -1837,7 +1865,7 @@ def serve_phase(torch, np, fb, st, card):
         model.hrnet.prepare_inference(stencil="1")
         few = payloads[:STENCIL_SERVE_REQUESTS]
         sline, sbodies, slaunches, sbatches, _ = _serve_pass(
-            torch, fb, st, model, few, settle=0, n_single=0)
+            torch, fb, st, _server(model), few, settle=0, n_single=0)
         assert slaunches == {"tiled": 0, "stencil": 104 * sbatches}, (
             slaunches, sbatches)
         row["stencil"] = {
@@ -1851,7 +1879,7 @@ def serve_phase(torch, np, fb, st, card):
 
         native = _slice_model(torch, native_demo_config())
         nline, nbodies, nlaunches, _, _ = _serve_pass(
-            torch, fb, st, native, payloads, settle=0, n_single=0)
+            torch, fb, st, _server(native), payloads, settle=0, n_single=0)
         assert nlaunches == {"tiled": 0, "stencil": 0}, nlaunches
         assert all(np.isfinite([x["rot_y"] for x in b["instances"]]).all()
                    for b in nbodies)
@@ -2151,9 +2179,10 @@ def mesh_phase(torch, np, fb, st, annot, card):
     bucket 32 on the one card, 104 tiled launches per shard by the counter
     (then 104 stencil launches per shard with the stencil selected), each
     held against the single-device facade on the same batch (the serve
-    bars); then a served pass through a PoseServer over the same mesh,
-    104 tiled launches per shard of every micro-batch, every response held
-    against the single-device facade."""
+    bars), and a dispatch of each facade under the sync debug mode
+    (:func:`_sync_free`); then a served pass through a PoseServer over
+    the same mesh, 104 tiled launches per shard of every micro-batch,
+    every response held against the single-device facade."""
     from egonet_tpu_torch.config import demo_config
     from egonet_tpu_torch.models.egonet import EgoNet
     from egonet_tpu_torch.parallel import mesh
@@ -2179,6 +2208,13 @@ def mesh_phase(torch, np, fb, st, annot, card):
         row[path] = {"bucket": rows, "launches": launches[path],
                      "launches_per_shard": launches[path] // MESH_SHARDS,
                      "vs_single": _gap_row(np, records, want),
+                     # a dispatch of each facade under
+                     # set_sync_debug_mode("error"): max |d ry| to single
+                     "sync_free": {
+                         "single": _gap_row(np, _sync_free(
+                             torch, single, annot), want)["max_d_ry_deg"],
+                         "sharded": _gap_row(np, _sync_free(
+                             torch, sharded, annot), want)["max_d_ry_deg"]},
                      "crops_per_s": n_inst / _steady_s(torch, sharded,
                                                        annot),
                      "single_crops_per_s": n_inst / _steady_s(torch, single,
@@ -2190,8 +2226,8 @@ def mesh_phase(torch, np, fb, st, annot, card):
         payloads = bench_serve.make_payloads(paths, MESH_SERVE_REQUESTS,
                                              SERVE_BOXES)
         line, bodies, launches, batches, _ = _serve_pass(
-            torch, fb, st, sharded, payloads, settle=MESH_SERVE_SETTLE,
-            n_single=0)
+            torch, fb, st, _server(sharded), payloads,
+            settle=MESH_SERVE_SETTLE, n_single=0)
         assert launches == {"tiled": 104 * MESH_SHARDS * batches,
                             "stencil": 0}, (launches, batches)
         row["serve"] = {"requests": len(payloads), "req_per_s": line["value"],
@@ -2651,6 +2687,759 @@ def gate_only(torch, np, fb, st, card, donor_dir):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# --cards N: the multi-card paths on N distinct cards
+# ---------------------------------------------------------------------------
+
+# the scaling rows: mesh sizes in turns (1, N, 2, 2, N, 1), the device
+# program at each batch over about MC_WINDOW_CROPS crops a window, the
+# median of MC_REPEATS windows; the e2e loop (tools/bench.bench_e2e) one
+# epoch a window
+MC_BATCHES, MC_WINDOW_CROPS, MC_REPEATS = (32, 128, 384), 1152, 5
+# the overlap rows' batches (frames x boxes): the slice, bucket 32, and
+# 16 frames x 24 boxes, bucket 384
+MC_OVERLAP, MC_OVERLAP_REPEATS = ((N_FRAMES, N_BOXES), (16, 24)), 3
+# the trainers on the synthetic world (tools/synthetic_world): its frames
+# (the first half trains: 32 frames x 3 cars, one step an epoch, 96 real
+# crops padded to 140), IGR epochs (the first one warm), lifter epochs,
+# the fp64 step's instances per rank
+MC_WORLD_FRAMES, MC_IGR_EPOCHS, MC_LIFT_EPOCHS = 64, 4, 3
+MC_PARITY_PER_RANK = 2
+# the fp32 CLI's first step at N ranks against 1 rank (relative loss; the
+# cross-rank batch norm sums x and x^2 where one process takes the
+# variance in one pass: 3.3e-5 apart over 2 gloo ranks at a shrunk width on
+# the CPU); the fp64 first step against one process: tests/
+# test_torch_dp.py's bars (loss, gradients, BN running statistics)
+MC_CLI_LOSS_REL = 1e-3
+MC_LOSS_TOL, MC_TENSOR_TOL, MC_STATS_TOL = 1e-10, 1e-9, 1e-12
+MC_ALLREDUCE_REPEATS = 5
+MC_RANK_TIMEOUT_S = 900.0
+
+
+def _smi_cards():
+    """``nvidia-smi --query-gpu=name,power.limit`` of every card."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()
+
+
+def _sync_free(torch, model, annot):
+    """One dispatch of ``annot`` under ``set_sync_debug_mode("error")``
+    after a warm one (libraries, launch plans, pinned blocks): it raises
+    at the first host synchronisation the dispatch path makes.  Returns
+    the records (finalized after the mode is off again)."""
+    model.finalize(model.dispatch_annot_dict(annot))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        try:                    # the mode's own check: a blocking copy
+            torch.tensor([0.0], device=model.device)
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("set_sync_debug_mode let a copy from "
+                                 "pageable host memory pass")
+        pending = model.dispatch_annot_dict(annot)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return model.finalize(pending)
+
+
+def _mc_build_rank(out):
+    """One rank of the build race: after a barrier every rank calls
+    ``load_ops("cuda")`` at once; writes its seconds, the libraries it
+    built itself, and an NCCL sum of ones over the ranks."""
+    import torch
+    import torch.distributed as dist
+    from egonet_tpu_torch.ops import _build
+    from egonet_tpu_torch.parallel import mesh
+    dist.barrier()
+    t0 = time.perf_counter()
+    _build.load_ops("cuda")
+    row = {"rank": mesh.rank(), "device": torch.cuda.current_device(),
+           "seconds": time.perf_counter() - t0,
+           "built": sorted(_build.BUILD_INFO)}
+    ones = torch.ones(1, device="cuda")
+    dist.all_reduce(ones)
+    row["nccl_sum"] = float(ones)
+    with open(os.path.join(out, f"build.rank{row['rank']}.json"), "w") as f:
+        json.dump(row, f)
+
+
+def _mc_build_race(torch, n, tmp):
+    """N ranks (nccl, one card each) reach the operators' first use at
+    once: the build lock lets one of them build while the others wait and
+    then load.  Also records the transports NCCL's log names for this
+    group's connections and which cards can reach each other's memory."""
+    from egonet_tpu_torch.ops import _build
+    from egonet_tpu_torch.parallel import mesh
+    cold = any(_build._stale(*_build._spec(lib))
+               for lib in _build.ops_libs("cuda"))
+    # NCCL's own log of this first group (one file a rank): the transport
+    # each channel's connection took
+    log = os.path.join(tmp, "nccl")
+    os.environ.update(NCCL_DEBUG="INFO", NCCL_DEBUG_FILE=log + ".%h.%p")
+    try:
+        mesh.run_ranks(_mc_build_rank, n, args=(tmp,), backend="nccl",
+                       device="cuda", timeout_s=MC_RANK_TIMEOUT_S)
+    finally:
+        del os.environ["NCCL_DEBUG"], os.environ["NCCL_DEBUG_FILE"]
+    transports = {}
+    for name in os.listdir(tmp):
+        if name.startswith("nccl."):
+            with open(os.path.join(tmp, name)) as f:
+                for m in re.finditer(r" via (\S+)", f.read()):
+                    transports[m.group(1)] = transports.get(m.group(1), 0) + 1
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(tmp, f"build.rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    built_by = [r["rank"] for r in ranks if r["built"]]
+    shm = os.statvfs("/dev/shm")
+    row = {"cold": cold, "ranks": ranks, "built_by": built_by,
+           "nccl_env": {k: v for k, v in os.environ.items()
+                        if k.startswith("NCCL_")},
+           "nccl_transports": transports,
+           "peer_access": [[i == j or torch.cuda.can_device_access_peer(i, j)
+                            for j in range(n)] for i in range(n)],
+           "dev_shm_mb": shm.f_bsize * shm.f_blocks / 2**20}
+    assert len(built_by) == (1 if cold else 0), row
+    assert [r["device"] for r in ranks] == list(range(n)), row
+    assert all(r["nccl_sum"] == n for r in ranks), row
+    return row
+
+
+def _mc_kernels(torch, fb, st, n):
+    """Both kernels on each card at every W48 shape (batch 32), their
+    inputs on that card and the calling thread's current card cuda:0,
+    each held against its plain version (the kernel phases' bar)."""
+    per_card = []
+    for i in range(n):
+        dev = torch.device("cuda", i)
+        g = torch.Generator(device=dev).manual_seed(i)
+        errs = {}
+        for c, h in W48_SHAPES:
+            with torch.cuda.device(dev):
+                x, folded = _block_inputs(torch, fb, g, c, h, BATCH)
+            ref = fb.fused_basic_block_reference(x, *folded).float()
+            for name, fn in (("fused_basic_block", fb.fused_basic_block),
+                             ("fused_basic_block_stencil",
+                              st.fused_basic_block_stencil)):
+                y = fn(x, *folded)
+                assert y.device == dev, (name, y.device)
+                torch.cuda.synchronize(dev)
+                torch.testing.assert_close(y.float(), ref, atol=5e-2,
+                                           rtol=2e-2)
+                errs[name] = max(errs.get(name, 0.0),
+                                 float((y.float() - ref).abs().max()))
+        per_card.append({"device": str(dev),
+                         "name": torch.cuda.get_device_name(i),
+                         "max_abs_err": errs})
+    return {"shapes": [list(s) for s in W48_SHAPES], "batch": BATCH,
+            "tolerance": "atol 5e-2 / rtol 2e-2", "per_card": per_card}
+
+
+def _overlap(torch, model, annot, planted_sync=False):
+    """One batch over ``model``'s mesh, each shard's program between two
+    CUDA events on its own card; every card's origin event is recorded
+    before the batch, with the cards idle.  Returns each shard's device
+    window and host enqueue window (ms from the batch's start), the
+    batch's wall ms and its H2D bytes.  ``planted_sync``: after each
+    shard's program, one blocking copy of a host value to its card (what
+    ``_tail`` and the rigid solve's list indexing made before this
+    repair), so the host waits for that shard before the next."""
+    from egonet_tpu_torch.models.egonet import EgoNet
+    model.finalize(model.dispatch_annot_dict(annot))
+    cards = model.mesh.distinct()
+    for d in cards:
+        torch.cuda.synchronize(d)
+    origin = {}
+    for d in cards:
+        with torch.cuda.device(d):
+            origin[d] = torch.cuda.Event(enable_timing=True)
+            origin[d].record()
+    t0 = time.perf_counter()
+    shards = []
+
+    def timed(fn):
+        def run(*args, replica, **kwargs):
+            dev = replica.scale.device
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            start.record()
+            out = fn(*args, replica=replica, **kwargs)
+            if planted_sync:
+                torch.tensor([0.0], device=dev)
+            end.record()
+            shards.append((dev, start, end, h0, time.perf_counter()))
+            return out
+        return run
+
+    model._core = timed(EgoNet._core.__get__(model))
+    model._core_packed = timed(EgoNet._core_packed.__get__(model))
+    h2d = model.transport_stats["h2d_bytes"]
+    try:
+        model.finalize(model.dispatch_annot_dict(annot))
+    finally:
+        del model._core, model._core_packed
+    wall = time.perf_counter() - t0
+    for d in cards:
+        torch.cuda.synchronize(d)
+    rows = [{"device": str(dev),
+             "device_ms": [origin[dev].elapsed_time(s),
+                           origin[dev].elapsed_time(e)],
+             "host_enqueue_ms": [1e3 * (a - t0), 1e3 * (b - t0)]}
+            for dev, s, e, a, b in shards]
+    ends = [r["device_ms"][1] for r in rows]
+    starts = [r["device_ms"][0] for r in rows]
+    return {"instances": sum(len(b) for b in annot["boxes"]),
+            "planted_sync": planted_sync, "shards": rows,
+            "wall_ms": 1e3 * wall,
+            "device_span_ms": max(ends) - min(starts),
+            "device_busy_sum_ms": sum(e - s for s, e in zip(starts, ends)),
+            "shards_started_before_first_ended": sum(
+                s < min(ends) for s in starts),
+            "h2d_bytes": model.transport_stats["h2d_bytes"] - h2d}
+
+
+def _mc_mesh(torch, np, fb, st, n):
+    """The W48 slice (bf16) through ``EgoNet(mesh=make_mesh(N))`` against
+    the single-card facade on cuda:0, tiled then stencil: 104 launches per
+    shard of the kernel in use and none of the other, the serve bars;
+    both dispatches (single, mesh) under ``set_sync_debug_mode("error")``;
+    the same N shards on cuda:0 against single; then the overlap rows
+    (MC_OVERLAP, each MC_OVERLAP_REPEATS times), as the facade runs and
+    with a blocking host copy planted after each shard."""
+    from egonet_tpu_torch.config import demo_config
+    from egonet_tpu_torch.models.egonet import EgoNet
+    from egonet_tpu_torch.parallel import mesh
+    from egonet_tpu_torch.precision import _plausible_ls_stats
+    annot = _frames(np)
+    single = _slice_model(torch, demo_config())
+    sharded = EgoNet(demo_config(), mesh=mesh.make_mesh(n))
+    sharded.load_state(ls_stats=_plausible_ls_stats())
+    row = {"mesh": [str(d) for d in sharded.mesh]}
+    for path, flag in (("tiled", "0"), ("stencil", "1")):
+        single.prepare_inference(stencil=flag)
+        sharded.prepare_inference(stencil=flag)
+        want = single(annot)
+        records, launches, rows = _mesh_batch(torch, fb, st, sharded, annot)
+        other = "stencil" if path == "tiled" else "tiled"
+        assert launches == {path: 104 * n, other: 0}, launches
+        checked = {"single": _sync_free(torch, single, annot),
+                   "mesh": _sync_free(torch, sharded, annot)}
+        row[path] = {
+            "bucket": rows, "launches": launches[path],
+            "launches_per_card": launches[path] // n,
+            "vs_single": _gap_row(np, records, want),
+            "bit_equal": all(np.array_equal(records[p]["euler_angles"],
+                                            want[p]["euler_angles"])
+                             for p in want),
+            "sync_free": {k: _gap_row(np, v, want)["max_d_ry_deg"]
+                          for k, v in checked.items()}}
+    sharded.prepare_inference(stencil="0")
+    single.prepare_inference(stencil="0")
+    # the same N shards on cuda:0: whether a gap to one card comes from
+    # the shards' size or from the cards
+    one_card = EgoNet(demo_config(), mesh=mesh.DataMesh(["cuda:0"] * n))
+    one_card.load_state(ls_stats=_plausible_ls_stats())
+    want = single(annot)
+    got = one_card(annot)
+    row["shards_on_cuda0"] = {
+        "vs_single": _gap_row(np, got, want),
+        "bit_equal": all(np.array_equal(got[p]["euler_angles"],
+                                        want[p]["euler_angles"])
+                         for p in want)}
+    del one_card
+    row["overlap"] = [_overlap(torch, sharded, _frames(np, f, b), sync)
+                      for f, b in MC_OVERLAP for sync in (False, True)
+                      for _ in range(MC_OVERLAP_REPEATS)]
+    del single, sharded
+    torch.cuda.empty_cache()
+    return row
+
+
+def _mesh_core_rate(torch, np, model, batch):
+    """The device program (``_core``) over ``model``'s mesh at ``batch``
+    crops (rounded up to a multiple of the mesh), its inputs already on
+    every card (tools/bench's): shard after shard enqueued back to back,
+    every output's checksum fetched at a window's end.  Returns {median,
+    min, max} crops/s of MC_REPEATS windows."""
+    from egonet_tpu_torch.parallel import mesh as pmesh
+    from egonet_tpu_torch.tools.bench import build_core_inputs
+    batch = pmesh.pad_to_multiple(batch, len(model.mesh))
+    images, meta, idx = build_core_inputs(model, batch)
+    frames = {d: images.to(d) for d in model.mesh.distinct()}
+    shards = [(d, meta[a:b].to(d), idx[a:b]) for d, (a, b) in zip(
+        model.mesh, pmesh.shard_bounds(batch, len(model.mesh)))]
+
+    def run():
+        outs = []
+        for d, m, ix in shards:
+            with torch.cuda.device(d):
+                outs.append(model._core(frames[d], m, ix, alpha_mode="proj",
+                                        replica=model.replicas[d]))
+        return outs
+
+    iters = max(2, MC_WINDOW_CROPS // batch)
+    rates = []
+    with torch.inference_mode():
+        for _ in range(2):
+            run()
+        for _ in range(MC_REPEATS):
+            for d in frames:
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            sums = [[] for _ in shards]
+            for _ in range(iters):
+                for j, out in enumerate(run()):
+                    sums[j].append(out[:, -2].sum())
+            check = sum(float(torch.stack(s).sum()) for s in sums)
+            rates.append(batch * iters / (time.perf_counter() - t0))
+            assert np.isfinite(check)
+    return {"median": float(np.median(rates)), "min": min(rates),
+            "max": max(rates), "batch": batch, "iters": iters}
+
+
+def _mc_turns(n):
+    """Mesh sizes in turns, so that each size is measured early and late
+    in the call: (1, N, 2, 2, N, 1), without sizes above N."""
+    sizes = list(dict.fromkeys(k for k in (1, n, 2) if k <= n))
+    return sizes + sizes[::-1]
+
+
+def _mc_scaling(torch, np, n, tmp):
+    """W48 bf16 device-program crops/s at MC_BATCHES and e2e crops/s
+    through the facade (``tools/bench.bench_e2e``: decode, host prep,
+    device, txts; one epoch a window) over 1, 2 and N cards, in the turns
+    of :func:`_mc_turns`."""
+    from egonet_tpu_torch.config import demo_config
+    from egonet_tpu_torch.models.egonet import EgoNet
+    from egonet_tpu_torch.parallel import mesh
+    from egonet_tpu_torch.tools import bench
+    order = _mc_turns(n)
+    models = {k: EgoNet(demo_config(), mesh=mesh.make_mesh(k))
+              for k in sorted(set(order))}
+    program = {k: {str(b): [] for b in MC_BATCHES} for k in models}
+    e2e = {k: [] for k in models}
+    for k in order:
+        for b in MC_BATCHES:
+            program[k][str(b)].append(_mesh_core_rate(torch, np, models[k],
+                                                      b))
+        r = bench.bench_e2e(models[k], tmp, epochs=1, repeats=MC_REPEATS)
+        e2e[k].append({key: r[key] for key in (
+            "crops_per_sec", "min", "max", "cold_crops_per_sec")})
+    del models
+    torch.cuda.empty_cache()
+
+    def mean(rows, key="median"):
+        return float(np.mean([r[key] for r in rows]))
+    return {"order": order, "repeats": MC_REPEATS,
+            "device_program": {str(k): v for k, v in program.items()},
+            "e2e": {str(k): v for k, v in e2e.items()},
+            "vs_one_card": {
+                str(k): {**{b: mean(program[k][b]) / mean(program[1][b])
+                            for b in program[k]},
+                         "e2e": mean(e2e[k], "crops_per_sec")
+                         / mean(e2e[1], "crops_per_sec")}
+                for k in program}}
+
+
+def _mc_serve(torch, np, fb, st, n):
+    """bench_serve's workload (SERVE_REQUESTS x SERVE_BOXES from
+    SERVE_WORKERS clients over SERVE_FRAMES frames) through ``tools/
+    serve.main(["--devices", k])`` for k = 1 then N (W48 bf16, tiled,
+    seeded random weights, the harness's LS statistics): 104 launches per
+    card of every micro-batch, every timed response against the
+    single-card offline facade at the serve bars."""
+    from egonet_tpu_torch.config import demo_config
+    from egonet_tpu_torch.precision import _plausible_ls_stats
+    from egonet_tpu_torch.tools import bench_serve, serve
+    offline = _slice_model(torch, demo_config())
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = bench_serve.make_frames(tmp, SERVE_FRAMES)
+        payloads = bench_serve.make_payloads(paths, SERVE_REQUESTS,
+                                             SERVE_BOXES)
+        for k in sorted({1, n}):
+            cfgs = demo_config()
+            cfgs["pre_trained"] = False
+            server = serve.main(["--devices", str(k), "--port", "0",
+                                 "--max-batch", "16", "--max-wait-ms",
+                                 str(SERVE_WAIT_MS), "--warmup", "0"],
+                                cfgs=cfgs, block=False)
+            server.batcher.model.load_state(ls_stats=_plausible_ls_stats())
+            line, bodies, launches, batches, _ = _serve_pass(
+                torch, fb, st, server, payloads, settle=8, n_single=12)
+            assert launches == {"tiled": 104 * k * batches, "stencil": 0}, (
+                launches, batches)
+            out[str(k)] = {key: line[key] for key in (
+                "value", "p50_ms", "p90_ms", "max_ms", "batches",
+                "single_stream_p50_ms", "frames_decoded", "cache_hits")}
+            out[str(k)].update({
+                "devices": k, "mesh": server.device.get("mesh"),
+                "run_batches": batches, "run_launches": launches["tiled"],
+                "vs_offline": _served_vs_offline(np, offline, payloads,
+                                                 bodies)})
+    del offline
+    torch.cuda.empty_cache()
+    return {"requests": SERVE_REQUESTS, "boxes": SERVE_BOXES,
+            "workers": SERVE_WORKERS, "by_devices": out}
+
+
+def _mc_dryrun(n, tmp):
+    """``tools/dryrun_multigpu --nproc N --backend nccl --device cuda``,
+    every leg admitted (each rank on its own card); then, from 3 cards,
+    the legs that exercise the 140-instance cap's wrap padding and the
+    sharded facade's at 3 ranks (140 and bucket 256 do not divide by
+    3)."""
+    from egonet_tpu_torch.parallel import mesh
+    from egonet_tpu_torch.tools import dryrun_multigpu
+    full = _dryrun(tmp, ["--nproc", str(n), "--backend", "nccl",
+                         "--device", "cuda", "--budget-s", "1e9"],
+                   MC_RANK_TIMEOUT_S)
+    assert full["backend"] == "nccl" and full["ranks"] == n, full
+    if n > 1:
+        assert full["skipped"] == {} and len(full["legs"]) == 7, full
+    row = {"full": full}
+    if n >= 3:
+        out = os.path.join(tmp, "dryrun3.json")
+        mesh.run_ranks(dryrun_multigpu._rank, 3,
+                       args=("cuda", 1e9, out, ("inference_parity",)),
+                       backend="nccl", device="cuda",
+                       timeout_s=MC_RANK_TIMEOUT_S)
+        with open(out) as f:
+            three = json.load(f)
+        assert three["ranks"] == 3 and three["skipped"] == {} and set(
+            three["legs"]) == {"sharded_train", "inference_parity"}, three
+        row["three_ranks"] = three
+    return row
+
+
+def _mc_igr_cfg(root, out):
+    """The shipped W48 IGR config on the synthetic world: one step an
+    epoch (the train split's 32 frames a batch), no debug grids."""
+    from egonet_tpu_torch.config import train_igrs_config
+    cfgs = train_igrs_config()
+    cfgs["dataset"]["root"] = root
+    cfgs["heatmapModel"]["pretrained"] = ""
+    cfgs["dirs"] = {"output": out}
+    cfgs["training_settings"].update({
+        "batch_size": MC_WORLD_FRAMES // 2, "total_epochs": MC_IGR_EPOCHS,
+        "debug": {"save": False}})
+    return cfgs
+
+
+def _mc_lift_cfg(root, out):
+    from egonet_tpu_torch.config import train_lifting_config
+    cfgs = train_lifting_config()
+    cfgs["dataset"]["root"] = root
+    cfgs["dirs"] = {"output": out}
+    cfgs["training_settings"]["total_epochs"] = MC_LIFT_EPOCHS
+    return cfgs
+
+
+def _rel(a, b):
+    """max |a - b| over max |b| (of two tensors, in fp64)."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+
+
+def _hold_step(torch, got, ref, what):
+    """(loss gap, largest gradient gap, largest BN statistics gap) of a
+    data-parallel step against one process's, held to tests/
+    test_torch_dp.py's bars: analytically-zero gradients (both sides
+    under 1e-14 of the largest) are rounding noise and skipped."""
+    loss = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    scale = max(float(g.abs().max()) for g in ref["grads"].values())
+    grad = max((_rel(got["grads"][k], g) for k, g in ref["grads"].items()
+                if max(float(g.abs().max()),
+                       float(got["grads"][k].abs().max())) >= 1e-14 * scale),
+               default=0.0)
+    stats = max((float((got["stats"][k].double() - s.double()).abs().max())
+                 / max(float(s.double().abs().max()), 1.0)
+                 for k, s in ref["stats"].items()), default=0.0)
+    gaps = {"loss": loss, "grads": grad, "bn_stats": stats}
+    assert set(got["grads"]) == set(ref["grads"]), what
+    assert loss <= MC_LOSS_TOL and grad <= MC_TENSOR_TOL \
+        and stats <= MC_STATS_TOL, (what, gaps)
+    return gaps
+
+
+def _step_record(state, loss):
+    return {"loss": float(loss),
+            "grads": {k: p.grad.detach().clone()
+                      for k, p in state.model.named_parameters()
+                      if p.grad is not None},
+            "stats": {k: v.detach().clone()
+                      for k, v in state.model.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))}}
+
+
+def _parity_steps(torch, np, root, device):
+    """The IGR (W48) and lifter trainers' first step in fp64 on one global
+    batch (MC_PARITY_PER_RANK instances a rank), data parallel and, on
+    rank 0, in one process (``mesh.solo``): the gaps (rank 0), else
+    None."""
+    from egonet_tpu_torch.config import train_igrs_config, \
+        train_lifting_config
+    from egonet_tpu_torch.data import kitti
+    from egonet_tpu_torch.data.loader import IGRBatchLoader
+    from egonet_tpu_torch.parallel import mesh
+    from egonet_tpu_torch.train.igrs import IGRTrainer
+    from egonet_tpu_torch.train.lifting import LiftingTrainer
+    k = MC_PARITY_PER_RANK * mesh.world()
+    f64 = ("joints", "mask", "sup_mask", "input", "output")
+    cfgs = train_igrs_config()
+    cfgs["dataset"]["root"] = root
+    cfgs["heatmapModel"]["pretrained"] = ""
+    records = kitti.KITTIDataset(cfgs, "train").records
+    batch = next(IGRBatchLoader(records, cfgs, train=True, max_instances=k,
+                                seed=0).epoch())
+    batch = {key: (v.astype(np.float64) if key in f64 else v)
+             for key, v in batch.items()}
+    lcfg = train_lifting_config()
+    lcfg["FCModel"].update({"input_size": 66, "output_size": 96})
+    rng = np.random.RandomState(3)
+    lbatch = {"input": rng.randn(k, 66), "output": rng.randn(k, 96),
+              "mask": np.ones(k)}
+
+    def igr():
+        t = IGRTrainer(cfgs, dtype=torch.float64, device=device)
+        state, m = t.train_step(t.init_state(0), batch, apply_cr=True)
+        return _step_record(state, m["loss"])
+
+    def lifter():
+        t = LiftingTrainer(lcfg, dtype=torch.float64, device=device)
+        state, loss = t.train_step(t.init_state(0), lbatch)
+        return _step_record(state, loss)
+
+    got = {"igr": igr(), "lifter": lifter()}
+    if not mesh.is_main():
+        return None
+    with mesh.solo():
+        ref = {"igr": igr(), "lifter": lifter()}
+    return {name: {"instances": k,
+                   "gaps": _hold_step(torch, got[name], ref[name], name)}
+            for name in got}
+
+
+def _all_reduce_seconds(torch, np, root, device):
+    """Seconds of ``mesh.all_reduce_grads`` over the W48 IGR model's fp32
+    gradients (one step's, on the synthetic world), MC_ALLREDUCE_REPEATS
+    times after one warm call, each between two synchronisations; and the
+    collectives of one such step (``dist.all_reduce`` calls counted: the
+    cross-rank batch norm's, forward and backward, the gradients', the
+    loss values') with its wall seconds, and the median seconds of one
+    all-reduce of 384 floats (a batch norm's statistics), each between
+    two synchronisations."""
+    import torch.distributed as dist
+    from egonet_tpu_torch.data import kitti
+    from egonet_tpu_torch.data.loader import IGRBatchLoader
+    from egonet_tpu_torch.parallel import mesh
+    from egonet_tpu_torch.train.igrs import IGRTrainer
+    cfgs = _mc_igr_cfg(root, "")
+    records = kitti.KITTIDataset(cfgs, "train").records
+    batch = next(IGRBatchLoader(records, cfgs, train=True, seed=0).epoch())
+    trainer = IGRTrainer(cfgs, device=device)
+    state, _ = trainer.train_step(trainer.init_state(0), batch)
+    calls, real = [], dist.all_reduce
+
+    def counted(t, *args, **kwargs):
+        calls.append(t.numel())
+        return real(t, *args, **kwargs)
+
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    dist.all_reduce = counted
+    try:
+        state, metrics = trainer.train_step(state, batch)
+        float(metrics["loss"])
+    finally:
+        dist.all_reduce = real
+    step_s = time.perf_counter() - t0
+    small = torch.ones(384, device=device)
+    lat = []
+    for i in range(110):
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        dist.all_reduce(small)
+        torch.cuda.synchronize(device)
+        if i >= 10:
+            lat.append(time.perf_counter() - t1)
+    step = {"seconds": step_s, "all_reduces": len(calls),
+            "all_reduce_floats": sum(calls),
+            "small_all_reduce_median_s": float(np.median(lat))}
+    params = list(state.model.parameters())
+    nbytes = sum(p.grad.numel() * p.grad.element_size() for p in params
+                 if p.grad is not None)
+    mesh.all_reduce_grads(params)
+    seconds = []
+    for _ in range(MC_ALLREDUCE_REPEATS):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        mesh.all_reduce_grads(params)
+        torch.cuda.synchronize(device)
+        seconds.append(time.perf_counter() - t0)
+    return {"bytes": nbytes, "seconds": seconds,
+            "median_s": float(np.median(seconds)), "step": step}
+
+
+def _mc_train_rank(out, root, tag, parts):
+    """One rank of the train leg (``parallel/mesh.run_ranks``: torchrun's
+    environment, nccl, the card of its local rank): ``parts`` of "parity"
+    (:func:`_parity_steps`), "all_reduce" (:func:`_all_reduce_seconds`),
+    "igr" (``tools/train_igrs.main`` on the synthetic world, fp32) and
+    "lifter" (``tools/train_lifting.main``); rank 0 writes
+    ``<out>/<tag>.json``."""
+    import numpy as np
+    import torch
+    from egonet_tpu_torch.parallel import mesh
+    from egonet_tpu_torch.tools import train_igrs, train_lifting
+    device = torch.device("cuda", torch.cuda.current_device())
+    row = {"ranks": mesh.world()}
+    if "parity" in parts:
+        row["parity_fp64"] = _parity_steps(torch, np, root, device)
+        torch.cuda.empty_cache()
+    if "all_reduce" in parts:
+        row["all_reduce"] = _all_reduce_seconds(torch, np, root, device)
+        torch.cuda.empty_cache()
+    if "igr" in parts:
+        t0 = time.perf_counter()
+        summary = train_igrs.main(cfgs=_mc_igr_cfg(
+            root, os.path.join(out, f"{tag}_igr")))
+        row["igr"] = {"history": summary["history"],
+                      "seconds": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
+    if "lifter" in parts:
+        t0 = time.perf_counter()
+        summary = train_lifting.main(cfgs=_mc_lift_cfg(
+            root, os.path.join(out, f"{tag}_lifter")))
+        row["lifter"] = {"history": summary["history"],
+                         "train_pairs": summary["train_pairs"],
+                         "seconds": time.perf_counter() - t0}
+    if mesh.is_main():
+        with open(os.path.join(out, f"{tag}.json"), "w") as f:
+            json.dump(row, f)
+
+
+def _igr_rates(np, igr):
+    """Crops trained per second of the IGR CLI's epochs after the first
+    (one step each: real and padded crops over the epoch's wall seconds,
+    and over its ``step`` seconds alone)."""
+    hist = igr["history"][1:]
+    wall = float(np.median([h["seconds"] for h in hist]))
+    step = float(np.median([h["split"]["step"] for h in hist]))
+    real = 3 * MC_WORLD_FRAMES // 2
+    return {"real_crops": real, "padded_crops": 140,
+            "median_epoch_s": wall, "median_step_s": step,
+            "real_crops_per_s": real / wall,
+            "padded_crops_per_s": 140 / wall,
+            "padded_crops_per_s_step_only": 140 / step,
+            "loss": [h["loss"] for h in igr["history"]],
+            "split_s": [h["split"] for h in igr["history"]]}
+
+
+def _mc_train(torch, np, n, tmp):
+    """The trainers under N ranks (nccl): the fp64 first step of the IGR
+    (W48) and lifter trainers against one process; the W48 gradients'
+    all-reduce seconds at N and 2 ranks; ``tools/train_igrs`` (fp32, the
+    shipped W48 config) at N, 2 and 1 ranks, its first step at N against
+    1 (MC_CLI_LOSS_REL), crops trained per second; ``tools/
+    train_lifting`` at N and 1."""
+    from egonet_tpu_torch.parallel import mesh
+    from egonet_tpu_torch.tools import synthetic_world
+    root, _ = synthetic_world.make_cars_world(os.path.join(tmp, "world"),
+                                              MC_WORLD_FRAMES)
+    plan = {1: ("igr", "lifter")}
+    if n > 2:
+        plan[2] = ("all_reduce", "igr")
+    plan[n] = ("parity", "all_reduce", "igr", "lifter")
+    got = {}
+    for k in sorted(plan, reverse=True):
+        tag = f"ranks{k}"
+        mesh.run_ranks(_mc_train_rank, k, args=(tmp, root, tag, plan[k]),
+                       backend="nccl", device="cuda",
+                       timeout_s=MC_RANK_TIMEOUT_S)
+        with open(os.path.join(tmp, f"{tag}.json")) as f:
+            got[k] = json.load(f)
+    first = {k: got[k]["igr"]["history"][0]["loss"] for k in got}
+    cli_gap = abs(first[n] - first[1]) / abs(first[1])
+    row = {"world_frames": MC_WORLD_FRAMES, "igr_epochs": MC_IGR_EPOCHS,
+           "parity_fp64": got[n].get("parity_fp64"),
+           "all_reduce": {str(k): got[k]["all_reduce"] for k in got
+                          if "all_reduce" in got[k]},
+           "igr": {str(k): _igr_rates(np, got[k]["igr"]) for k in got},
+           "igr_first_step_loss": {str(k): v for k, v in first.items()},
+           "igr_first_step_rel_gap": cli_gap,
+           "lifter": {str(k): {
+               "loss": [h["loss"] for h in got[k]["lifter"]["history"]],
+               "epoch_s": [h["seconds"] for h in got[k]["lifter"]["history"]],
+               "train_pairs": got[k]["lifter"]["train_pairs"]}
+               for k in got if "lifter" in got[k]}}
+    assert cli_gap <= MC_CLI_LOSS_REL, row
+    for k in got:
+        assert np.isfinite(row["igr"][str(k)]["loss"]).all(), row
+    return row
+
+
+def multicard_phase(torch, np, card, n):
+    """``--cards N``: the multi-card paths over the first N cards, one
+    JSON row per leg (its seconds, the cards, nvidia-smi's name and power
+    limit of each); every leg runs, and the phase fails after the last if
+    any failed.  No leg falls back to gloo, to cuda:0 or to a plain
+    version."""
+    import traceback
+    from egonet_tpu_torch.ops import _build
+    from egonet_tpu_torch.ops import fused_block as fb
+    from egonet_tpu_torch.ops import fused_block_stencil as st
+    base = {"n_cards": n,
+            "cards": [torch.cuda.get_device_name(i) for i in range(n)],
+            "smi": _smi_cards()[:n], "card": card}
+    failed = []
+
+    def leg(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            row = fn(*args)
+        except Exception:          # every leg runs; the phase fails below
+            row = {"error": traceback.format_exc()[-6000:]}
+            failed.append(name)
+        print(json.dumps({"multicard": {
+            "leg": name, **row, "seconds": time.perf_counter() - t0,
+            **base}}), flush=True)
+        torch.cuda.empty_cache()
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        leg("build_race", _mc_build_race, torch, n, tmp)
+        _build.load_ops("cuda")
+        leg("kernels", _mc_kernels, torch, fb, st, n)
+        leg("mesh", _mc_mesh, torch, np, fb, st, n)
+        leg("scaling", _mc_scaling, torch, np, n, tmp)
+        leg("serve", _mc_serve, torch, np, fb, st, n)
+        leg("dryrun", _mc_dryrun, n, tmp)
+        leg("train", _mc_train, torch, np, n, tmp)
+    print(json.dumps({"multicard_s": time.perf_counter() - t_phase,
+                      "failed": failed, **base}), flush=True)
+    assert not failed, failed
+
+
+def multicard_only(torch, np, card, n):
+    """``--cards N``: the multicard phase alone (the operator and kernel
+    libraries built by its first leg); raises unless N cards are
+    visible."""
+    visible = torch.cuda.device_count()
+    if visible < n:
+        raise RuntimeError(f"--cards {n}: {visible} CUDA device(s) are "
+                           "visible")
+    multicard_phase(torch, np, card, n)
+    _print_ok(torch, card)
+    return 0
+
+
 def _print_ok(torch, card):
     """The run's last two lines: the card, then {"ok": true, ...}."""
     print(card, flush=True)
@@ -2689,6 +3478,9 @@ def main(argv=None) -> int:
     ap.add_argument("--trained-loop", action="store_true",
                     help="run only tools/trained_closed_loop at its full "
                          "recipe")
+    ap.add_argument("--cards", type=int, metavar="N",
+                    help="run only the multicard phase over the first N "
+                         "cards (an error when fewer are visible)")
     args = ap.parse_args(argv)
     import torch
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2717,6 +3509,8 @@ def main(argv=None) -> int:
         return gate_only(torch, np, fb, st, card, args.gate_donors)
     if args.trained_loop:
         return trained_loop_only(torch, card)
+    if args.cards:
+        return multicard_only(torch, np, card, args.cards)
     sweep = sweep_plans(fb)
     sweep_lib = fb.library([p for plans in sweep.values() for _, p in plans])
     ssweep = stencil_sweep(st)

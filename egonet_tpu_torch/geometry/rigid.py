@@ -22,13 +22,40 @@ _EDGE_P = (INTERP_DICT["bbox12"][0] - 1).tolist()
 _EDGE_C = (INTERP_DICT["bbox12"][1] - 1).tolist()
 
 
+def _runs(idx) -> tuple:
+    """``idx`` as a few slices (maximal runs of a constant positive step),
+    so that :func:`_take` gathers on the device with no index tensor: a
+    Python list as an index is copied to the device first, and that copy
+    waits for the device."""
+    out, i = [], 0
+    while i < len(idx):
+        j = i + 1
+        step = idx[j] - idx[i] if j < len(idx) else 1
+        while step > 0 and j < len(idx) and idx[j] - idx[j - 1] == step:
+            j += 1
+        if step <= 0:
+            step, j = 1, i + 1
+        out.append(slice(idx[i], idx[j - 1] + 1, step))
+        i = j
+    return tuple(out)
+
+
+def _take(x: torch.Tensor, dim: int, runs: tuple) -> torch.Tensor:
+    """``x`` indexed along ``dim`` by the indices of ``runs``."""
+    pre = (slice(None),) * dim
+    return torch.cat([x[pre + (r,)] for r in runs], dim=dim)
+
+
+_EDGE_P_RUNS, _EDGE_C_RUNS = _runs(_EDGE_P), _runs(_EDGE_C)
+
+
 def template_from_prediction(pred: torch.Tensor,
                              interp_coef=DEFAULT_INTERP_COEF) -> torch.Tensor:
     """Canonical (zero-rotation) cuboid templates sized like the
     predictions.  pred: [N, 32, 3] center-relative points.
     Returns [N, 3, 32]."""
-    parents = pred[:, _EDGE_P]
-    children = pred[:, _EDGE_C]
+    parents = _take(pred, 1, _EDGE_P_RUNS)
+    children = _take(pred, 1, _EDGE_C_RUNS)
     lines = torch.sqrt(torch.sum((parents - children) ** 2, dim=2))  # [N, 12]
     h = torch.sum(lines[:, 0:4], dim=1) / 4.0
     l = torch.sum(lines[:, 4:8], dim=1) / 4.0
@@ -40,8 +67,8 @@ def template_from_prediction(pred: torch.Tensor,
     z_corners = torch.stack([w, w, z, z, w, w, z, z], 1) - (w / 2.0)[:, None]
     corners = torch.stack([x_corners, y_corners, z_corners], 1)  # [N, 3, 8]
 
-    p = corners[:, :, _EDGE_P]
-    c = corners[:, :, _EDGE_C]
+    p = _take(corners, 2, _EDGE_P_RUNS)
+    c = _take(corners, 2, _EDGE_C_RUNS)
     lines3 = c - p
     new_pts = [p + coef * lines3 for coef in interp_coef]
     return torch.cat([corners] + new_pts, dim=2)                # [N, 3, 32]

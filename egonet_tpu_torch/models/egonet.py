@@ -29,6 +29,13 @@ device holds a replica of the models and LS statistics and gets the
 frames, and shard i (equal contiguous rows of ``meta``) runs the device
 program on ``mesh.devices[i]``; the shards are launched one after another
 without waiting, and their outputs copied into one host array in order.
+The dispatch path (``dispatch_annot_dict`` -> ``_run`` -> ``_core`` /
+``_core_packed`` -> ``_tail``) makes no host synchronisation: the only
+host-to-device copies are the batch's, from pinned memory (the frames
+pinned once and sent to each device), and every constant the program
+reads is made once per device in ``to_device`` (:class:`Replica`), so
+shard i+1 is enqueued while shard i runs.  The host waits in
+``finalize`` only.
 """
 
 from __future__ import annotations
@@ -37,11 +44,13 @@ import contextlib
 import copy
 import functools
 from os.path import join as pjoin
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from egonet_tpu_torch.config import config_dtype
+from egonet_tpu_torch.constants import norm_stats
 from egonet_tpu_torch.device import full_precision_fp32, resolve_device
 from egonet_tpu_torch.geometry import rigid
 from egonet_tpu_torch.io import weights
@@ -57,6 +66,19 @@ def _on(device):
     """``device`` made current for the CUDA work launched under it."""
     return (torch.cuda.device(device) if device.type == "cuda"
             else contextlib.nullcontext())
+
+
+class Replica(NamedTuple):
+    """What one device runs the program with, all on that device: the
+    models, the LS statistics, and the constants ``_tail`` reads (the
+    crop's [width, height] scale and the crop normalisation's (mean,
+    std)), made once in ``to_device`` so that a dispatch copies nothing
+    from the host but the batch."""
+    hrnet: torch.nn.Module
+    lifter: torch.nn.Module
+    ls_stats: dict
+    scale: torch.Tensor
+    norm: tuple
 
 
 def _round_up_bucket(n: int, minimum: int = 8) -> int:
@@ -151,7 +173,8 @@ class EgoNet:
             self.load_checkpoints(cfgs["dirs"]["ckpt"])
         self.to_device()
         self.transport_stats = {"packed_batches": 0, "canvas_batches": 0,
-                                "packed_bytes": 0, "canvas_bytes": 0}
+                                "packed_bytes": 0, "canvas_bytes": 0,
+                                "h2d_bytes": 0}
         # decoded-image store (cfg: cache_images, default on;
         # image_cache_bytes; image_disk_cache, a directory for the raw
         # uint8 disk tier)
@@ -167,7 +190,9 @@ class EgoNet:
         """Move parameters and LS statistics to the device ONCE (HRNet in
         ``channels_last``), keep fp32 convs and matmuls at full fp32, and
         fold BN / pre-cast the HRNet conv weights for bf16 inference; with
-        a mesh, copy them to each of its other devices."""
+        a mesh, copy them to each of its other devices.  Every device's
+        :class:`Replica` also gets its own copy of the program's
+        constants."""
         full_precision_fp32()
         self.hrnet.to(self.device, memory_format=torch.channels_last)
         self.lifter.to(self.device)
@@ -175,23 +200,32 @@ class EgoNet:
         self.ls_stats = {k: torch.as_tensor(np.asarray(v, np.float32),
                                             device=self.device)
                          for k, v in self.ls_stats.items()}
-        self.replicas = {self.device: (self.hrnet, self.lifter,
-                                       self.ls_stats)}
+        self.replicas = {self.device: self._replica(
+            self.device, self.hrnet, self.lifter, self.ls_stats)}
         for dev in self.mesh.distinct():
             if dev in self.replicas:
                 continue
             hrnet = copy.deepcopy(self.hrnet).to(
                 dev, memory_format=torch.channels_last)
             hrnet.prepare_inference()
-            self.replicas[dev] = (hrnet, copy.deepcopy(self.lifter).to(dev),
-                                  {k: v.to(dev)
-                                   for k, v in self.ls_stats.items()})
+            self.replicas[dev] = self._replica(
+                dev, hrnet, copy.deepcopy(self.lifter).to(dev),
+                {k: v.to(dev) for k, v in self.ls_stats.items()})
+
+    def _replica(self, dev, hrnet, lifter, ls_stats) -> Replica:
+        width, height = self.resolution
+        mean, std = norm_stats(self.cfgs)
+        return Replica(hrnet, lifter, ls_stats,
+                       torch.tensor([width, height], dtype=torch.float32,
+                                    device=dev),
+                       (torch.as_tensor(mean, device=dev),
+                        torch.as_tensor(std, device=dev)))
 
     def prepare_inference(self, **kwargs):
         """``prepare_inference(**kwargs)`` of every replica's keypoint
         model (e.g. ``stencil="1"``, which selects the stencil kernel)."""
-        for hrnet, _, _ in self.replicas.values():
-            hrnet.prepare_inference(**kwargs)
+        for replica in self.replicas.values():
+            replica.hrnet.prepare_inference(**kwargs)
 
     def load_state(self, hrnet_state=None, lifter_state=None, ls_stats=None):
         """Load state_dicts (strict) and/or LS statistics, then refresh the
@@ -236,7 +270,8 @@ class EgoNet:
         None: the frame indices are read from meta's column 8 on the
         device and the frames gathered (the exported program's form, whose
         graph takes no host ints; ``io/export.py``).  ``replica``: the
-        (hrnet, lifter, LS statistics) to run, by default the facade's."""
+        :class:`Replica` to run, by default the facade's device's with the
+        facade's LS statistics (which ``io/export.py`` swaps)."""
         width, height = self.resolution
         inv_mats, _o, idx, valid, K_f, K_cx, img_wh, _b = _unpack_meta(meta)
         if img_idx is None:
@@ -265,17 +300,18 @@ class EgoNet:
         """Post-warp body shared by both transports -> flat [N, D] fp32:
         screen kpts, lifter output, angles, translation, alpha, valid."""
         width, height = self.resolution
-        hrnet, lifter, ls = replica or (self.hrnet, self.lifter,
-                                        self.ls_stats)
+        if replica is None:
+            replica = self.replicas[self.device]._replace(
+                ls_stats=self.ls_stats)
+        hrnet, lifter, ls = replica.hrnet, replica.lifter, replica.ls_stats
         with span("normalize"):
             crops = affine.normalize_crop_patches(
-                self.cfgs, patches, inv_mats, img_wh, (height, width))
+                self.cfgs, patches, inv_mats, img_wh, (height, width),
+                stats=replica.norm)
         with span("backbone"):
             _maps, coords = hrnet(crops.permute(0, 3, 1, 2))
         with span("inverse_affine"):
-            local = coords * torch.tensor([width, height],
-                                          dtype=torch.float32,
-                                          device=coords.device)
+            local = coords * replica.scale
             screen = affine.batched_affine_transform(local, inv_mats)
 
         n = screen.shape[0]
@@ -450,9 +486,12 @@ class EgoNet:
         """Enqueue the device program ``run`` (``_core`` or a
         ``_core_packed``) on the batch, shard by shard over the mesh (one
         shard without one), and the copy of its output to the host;
-        returns (host tensor, CUDA events to wait on)."""
+        returns (host tensor, CUDA events to wait on).  The frames and
+        meta are pinned once; the frames go to each device once."""
         frames, outs = {}, []
         with torch.inference_mode():
+            with span("h2d"):
+                images, meta = self._host(images), self._host(meta)
             for dev, (a, b) in zip(self.mesh, pmesh.shard_bounds(
                     len(meta), len(self.mesh))):
                 with _on(dev):
@@ -463,13 +502,23 @@ class EgoNet:
                                     replica=self.replicas[dev]))
             return self._download(outs)
 
-    def _upload(self, arr: np.ndarray, device=None) -> torch.Tensor:
+    def _host(self, arr: np.ndarray) -> torch.Tensor:
+        """``arr`` as a host tensor, in pinned memory when the facade runs
+        on the card (so that its copies to the card do not block)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        return t if self.device.type == "cpu" else t.pin_memory()
+
+    def _upload(self, arr, device=None) -> torch.Tensor:
+        """A numpy array or a :meth:`_host` tensor on ``device`` (by
+        default the facade's), copied to a card without blocking (its bytes
+        count in ``transport_stats["h2d_bytes"]``)."""
         device = self.device if device is None else device
         with span("h2d"):
-            t = torch.from_numpy(np.ascontiguousarray(arr))
+            t = arr if isinstance(arr, torch.Tensor) else self._host(arr)
             if device.type == "cpu":
                 return t
-            return t.pin_memory().to(device, non_blocking=True)
+            self.transport_stats["h2d_bytes"] += t.nbytes
+            return t.to(device, non_blocking=True)
 
     def _download(self, outs: list):
         """Start the device->host copy of the fused outputs (one per shard,

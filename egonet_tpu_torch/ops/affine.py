@@ -487,16 +487,19 @@ def xy_maps_from_inv_mats(inv_mats: torch.Tensor, out_hw,
 def normalize_crop_patches(cfgs: dict, patches: torch.Tensor,
                            inv_mats: torch.Tensor | None,
                            img_wh: torch.Tensor | None,
-                           out_hw) -> torch.Tensor:
+                           out_hw, stats=None) -> torch.Tensor:
     """Warp output -> model input: round (half to even, as ``jnp.round``),
     scale by ``crop_scale_divisor``, mean/std-normalize, and for add_xy
     models concatenate the xy channels (normalized by stats entries 3:5
     when the config carries 5).
 
-    patches: [N, H, W, 3] warp output on a 0-255 scale.
+    patches: [N, H, W, 3] warp output on a 0-255 scale.  ``stats``: the
+    config's (mean, std) (``constants.norm_stats``) already on the
+    patches' device; without it they are copied there, which on a card
+    waits for the device.
     Returns [N, H, W, 3 or 5] float32."""
     add_xy = bool(((cfgs or {}).get("heatmapModel") or {}).get("add_xy"))
-    mean, std = norm_stats(cfgs)
+    mean, std = norm_stats(cfgs) if stats is None else stats
     if len(mean) != len(std):
         raise ValueError(
             f"pth_transform mean/std length mismatch: {len(mean)} vs "
@@ -505,9 +508,9 @@ def normalize_crop_patches(cfgs: dict, patches: torch.Tensor,
         raise ValueError(
             f"pth_transform stats have {len(mean)} entries; expected 3, "
             "or 5 with heatmapModel.add_xy enabled")
-    dev = patches.device
-    mean = torch.as_tensor(mean, device=dev)
-    std = torch.as_tensor(std, device=dev)
+    if stats is None:
+        mean = torch.as_tensor(mean, device=patches.device)
+        std = torch.as_tensor(std, device=patches.device)
     div = crop_scale_divisor(cfgs)
     crops = (torch.round(patches.to(torch.float32))
              / div - mean[:3]) / std[:3]

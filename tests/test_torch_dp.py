@@ -18,7 +18,9 @@ programs are tests/torch_dp_ranks.py, which imports no jax).
   ranks of 4 rows), at the same bars; a per-rank batch norm (the group's
   reduction dropped) fails them.
 * ``host_shard`` by node for 2 nodes x 2 ranks; the dry run
-  (``tools/dryrun_multigpu``) over 2 gloo ranks.
+  (``tools/dryrun_multigpu``) over 2 gloo ranks, and over 3, where the
+  140-instance cap and the sharded facade's bucket do not divide (the
+  JAX dry run's 8 devices exercise that case).
 """
 
 import json
@@ -321,3 +323,21 @@ def test_dryrun_over_two_gloo_ranks(tmp_path, capfd):
     assert summary["skipped"] == {
         name: "one rank" for name in dryrun_multigpu.GROUP_LEGS}
     assert "budget" not in capfd.readouterr().out
+
+
+def test_dryrun_over_three_gloo_ranks_pads_the_cap(tmp_path, capfd):
+    """3 ranks: the cap's 140 instances are padded to 141 with wrap rows
+    (the first leg raises if the padding is not exercised), the sharded
+    facade's bucket to a multiple of 3, and the legs pass."""
+    from egonet_tpu_torch.tools import dryrun_multigpu
+    out = tmp_path / "dry3.json"
+    mesh.run_ranks(dryrun_multigpu._rank, 3,
+                   args=("cpu", 1e9, str(out), ("inference_parity",)),
+                   timeout_s=TIMEOUT_S)
+    summary = json.loads(out.read_text())
+    assert summary["ranks"] == 3 and summary["backend"] == "gloo"
+    assert set(summary["legs"]) == {"sharded_train", "inference_parity"}
+    assert summary["skipped"] == {}
+    text = capfd.readouterr().out
+    assert "3 ranks, 140 instances padded to 141" in text
+    assert "over 3 shards" in text

@@ -145,6 +145,34 @@ def test_sharded_facade_matches_single_and_jax_mesh(trio, n_per, pack_mode):
         _compare_records(jm.forward_annot_dict(annot), got)
 
 
+@pytest.mark.parametrize("pack_mode", ["never", "always"])
+def test_dispatch_makes_no_tensor_from_host_values(trio, pack_mode,
+                                                   monkeypatch):
+    """The [width, height] scale and the crop normalisation's (mean, std)
+    are made once per replica (``to_device``): a batch over a two-shard
+    mesh (two ``_tail`` calls) calls neither ``torch.tensor`` nor
+    ``torch.as_tensor`` (on a card, each copies from the host and waits
+    for the device), and answers as the single-device facade."""
+    cfg, _, _, t = trio
+    tm = _on_mesh(cfg, t, 2)
+    tm.pack_mode = t.pack_mode = pack_mode
+    annot = _annot(seed=4, n_img=2, n_per=3)
+    want = t.forward_annot_dict(annot)
+    calls, tails = [], []
+    for name in ("tensor", "as_tensor"):
+        real = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, _r=real, _n=name, **k:
+                            calls.append(_n) or _r(*a, **k))
+    tail = tm._tail
+    monkeypatch.setattr(tm, "_tail", lambda *a: tails.append(a[-1])
+                        or tail(*a))
+    got = tm.forward_annot_dict(annot)
+    monkeypatch.undo()
+    assert calls == [] and len(tails) == 2
+    assert all(r is tm.replicas[torch.device("cpu")] for r in tails)
+    _compare_records(want, got)
+
+
 @pytest.mark.parametrize("n_boxes", [3, 9, 100])
 def test_bucket_equals_the_jax_mesh_bucket(trio, n_boxes, monkeypatch):
     """For the same mesh size (8), the port pads a batch to JAX's bucket
@@ -174,8 +202,8 @@ def test_mesh_replicas_follow_load_state(trio):
     assert list(tm.replicas) == [torch.device("cpu")]
     w = {k: v * 0 for k, v in t.lifter.state_dict().items()}
     tm.load_state(lifter_state=w)
-    for _, lifter, _ in tm.replicas.values():
-        assert all(not v.any() for v in lifter.state_dict().values())
+    for replica in tm.replicas.values():
+        assert all(not v.any() for v in replica.lifter.state_dict().values())
 
 
 # ------------------------------------------------------------ serving
