@@ -19,7 +19,9 @@ full canvases); the device runs
 and returns ONE flat [N, D] fp32 array, copied to pinned host memory
 without blocking; ``finalize`` waits on a CUDA event and regroups it per
 image; ``post_process`` writes byte-compatible KITTI txts.  Each stage runs
-inside a named range (``utils/profiling.SPANS``), which a trace reads.
+inside a named range (``utils/profiling.SPANS``; ``post_process`` and the
+weight draw in ``__init__`` in their own), which a trace and the always-on
+totals read.
 Instance counts are padded to the JAX package's buckets so both packages
 run identical batches.
 
@@ -154,14 +156,15 @@ class EgoNet:
         if self.pack_mode not in ("auto", "never", "always"):
             raise ValueError(f"roi_packing must be auto/never/always, "
                              f"got {self.pack_mode!r}")
-        self.hrnet = numpy_init(build_heatmap_model(cfgs, dtype=self.dtype),
-                                rng_seed).eval()
-        if getattr(self.hrnet, "head_type", None) != "coordinates":
+        hrnet = build_heatmap_model(cfgs, dtype=self.dtype)
+        if getattr(hrnet, "head_type", None) != "coordinates":
             raise ValueError("the facade reads keypoints from a "
                              "'coordinates' head; heatmapModel "
                              f"{hm.get('name', 'hrnet')!r} has none")
-        self.lifter = numpy_init(build_fc_model(cfgs, dtype=self.dtype),
-                                 rng_seed + 1).eval()
+        lifter = build_fc_model(cfgs, dtype=self.dtype)
+        with span("init_weights"):
+            self.hrnet = numpy_init(hrnet, rng_seed).eval()
+            self.lifter = numpy_init(lifter, rng_seed + 1).eval()
         fc = cfgs["FCModel"]
         self.ls_stats = {
             "mean_in": np.zeros((1, fc["input_size"]), np.float32),
@@ -611,6 +614,12 @@ class EgoNet:
         txts are written; ``visualize`` writes ``<stem>_2d.png`` and
         ``<stem>_3d.png`` into ``vis_dir`` (default: the txts' directory;
         needs matplotlib)."""
+        with span("post_process"):
+            return self._post_process(records, save_dict, alpha_mode,
+                                      visualize, color_dict, vis_dir, refine)
+
+    def _post_process(self, records, save_dict, alpha_mode, visualize,
+                      color_dict, vis_dir, refine):
         import os
         from egonet_tpu_torch.io import kitti_writer
         for img_path, rec in records.items():

@@ -1,8 +1,8 @@
 """Profile the port's device program (``EgoNet._core``), or with
 ``--train`` one IGR train step, and print where the time goes: by kernel
 category, by stage (``utils/profiling.SPANS``, or ``TRAIN_SPANS`` for the
-train step), the top kernels and the device's idle gaps (port of
-``tools/profile_model.py``).
+train step), the top kernels and the device's idle gaps, each by what
+the card waited for (port of ``tools/profile_model.py``).
 
     python -m egonet_tpu_torch.tools.profile_model [--cfg <yaml>] [--train]
         [--batch 384] [--iters 2] [--trace-dir DIR]

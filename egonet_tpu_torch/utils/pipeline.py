@@ -1,12 +1,16 @@
-"""Producer-thread prefetch with exception propagation (copy of
+"""Producer-thread prefetch with exception propagation (port of
 ``egonet_tpu/utils/pipeline.py``): an exception raised while preparing item
 k is re-raised in the consumer at position k instead of silently
-truncating the stream."""
+truncating the stream.  The producer's hand-over of each item is the
+``queue_put`` span (``utils/profiling.PIPELINE_SPANS``): the time it sat
+ahead of the consumer with nothing to do."""
 
 from __future__ import annotations
 
 import queue as queue_mod
 import threading
+
+from egonet_tpu_torch.utils.profiling import span
 
 
 class _Raise:
@@ -37,8 +41,12 @@ def prefetch_map(fn, iterable, depth: int = 2):
     def produce():
         try:
             for item in iterable:
-                if stop.is_set() or not put(
-                        fn(item) if fn is not None else item):
+                if stop.is_set():
+                    return
+                out = fn(item) if fn is not None else item
+                with span("queue_put"):
+                    handed = put(out)
+                if not handed:
                     return
         except BaseException as exc:  # noqa: BLE001 — re-raised in consumer
             put(_Raise(exc))

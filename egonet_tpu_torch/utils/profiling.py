@@ -1,15 +1,20 @@
-"""Profiling: a step timer, ``torch.profiler`` traces and their summary by
-device category, kernel, facade stage and idle gap (port of
-``egonet_tpu/utils/profiling.py``).
+"""Profiling: named stage ranges with always-on totals, ``torch.profiler``
+traces and their summary by device category, kernel, facade stage and
+idle gap (port of ``egonet_tpu/utils/profiling.py``).
 
 The facade (``models/egonet.py``) wraps each stage of a batch in a named
 range, ``span(name)``, one of :data:`SPANS`; the IGR trainer
 (``train/igrs.py``) wraps each stage of a step in one of
-:data:`TRAIN_SPANS`.  A range costs about a
-microsecond on the host when no profiler runs.  Under :func:`trace` on the
-card, CUPTI ties every kernel and copy to the host call that launched it,
-so :func:`summarize_trace` can give each stage its device time, the way the
-JAX package reads XLA's op metadata.
+:data:`TRAIN_SPANS`; the pipeline around the facade and its set-up use
+:data:`PIPELINE_SPANS` and :data:`SETUP_SPANS`.  A span is one
+``torch.profiler.record_function`` range, which costs about ten
+microseconds on the host when no profiler runs, and it adds its wall and
+thread-CPU time to its thread's totals (:func:`totals`), which a run reads
+without a profiler.  Under :func:`trace` on the card, CUPTI ties every
+kernel and copy to the host call that launched it, so
+:func:`summarize_trace` can give each stage its device time, the way the
+JAX package reads XLA's op metadata, and name what the card waited for in
+each idle gap.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import collections
 import contextlib
 import json
 import os
+import threading
 import time
 
 import torch
@@ -54,56 +60,150 @@ SPANS = ("host_prep", "h2d", "warp", "normalize", "backbone",
 TRAIN_SPANS = ("h2d", "warp", "normalize", "forward", "targets", "loss",
                "backward", "optimizer")
 
+# Around the facade's batches:
+#   post_process  EgoNet.post_process: the KITTI label lines (consumer)
+#   queue_put     utils/pipeline.prefetch_map's producer handing a finished
+#                 item over: blocked while the consumer is behind
+PIPELINE_SPANS = ("post_process", "queue_put")
+
+# Set-up:
+#   init_weights  EgoNet.__init__'s numpy draw of every weight
+SETUP_SPANS = ("init_weights",)
+
+_NAMES = frozenset(SPANS + TRAIN_SPANS + PIPELINE_SPANS + SETUP_SPANS)
+
+# Each thread's totals, {name: [count, wall ns, thread-CPU ns]}, written by
+# that thread alone, so the hot path takes no lock and loses no update;
+# the tables of finished threads are folded into _retired when a thread
+# registers, and reset_totals() moves the baseline that totals() subtracts.
+_local = threading.local()
+_lock = threading.Lock()
+_tables: list = []                 # [(thread, its table)]
+_retired: dict = {}
+_baseline: dict = {}
+
+
+def _table() -> dict:
+    table = getattr(_local, "table", None)
+    if table is None:
+        table = _local.table = {}
+        with _lock:
+            live = []
+            for thread, t in _tables:
+                if thread.is_alive():
+                    live.append((thread, t))
+                else:
+                    _add_into(_retired, t)
+            live.append((threading.current_thread(), table))
+            _tables[:] = live
+    return table
+
+
+def _add_into(dst: dict, src: dict, sign: int = 1) -> None:
+    for name, row in list(src.items()):
+        acc = dst.setdefault(name, [0, 0, 0])
+        for i in range(3):
+            acc[i] += sign * row[i]
+
+
+def _merged() -> dict:
+    """Every thread's totals summed (the caller holds ``_lock``)."""
+    merged: dict = {}
+    _add_into(merged, _retired)
+    for _, table in _tables:
+        _add_into(merged, table)
+    return merged
+
+
+class _Span:
+    """One stage's ``record_function`` range, timed into the thread's
+    totals."""
+
+    __slots__ = ("name", "_range", "_wall", "_cpu")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        self._range.__enter__()
+        # the wall interval holds the CPU one: wall >= CPU where the
+        # thread clock is fine (one that counts scheduler ticks charges a
+        # short span a whole tick or none)
+        self._wall = time.perf_counter_ns()
+        self._cpu = time.thread_time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        cpu = time.thread_time_ns() - self._cpu
+        wall = time.perf_counter_ns() - self._wall
+        table = _table()
+        row = table.get(self.name)
+        if row is None:
+            row = table[self.name] = [0, 0, 0]
+        row[0] += 1
+        row[1] += wall
+        row[2] += cpu
+        return self._range.__exit__(*exc)
+
+
+def span(name: str) -> _Span:
+    """The named range of one stage (``name`` must be in SPANS,
+    TRAIN_SPANS, PIPELINE_SPANS or SETUP_SPANS)."""
+    if name not in _NAMES:
+        raise ValueError(f"unknown span {name!r}; SPANS = {SPANS}, "
+                         f"TRAIN_SPANS = {TRAIN_SPANS}, PIPELINE_SPANS = "
+                         f"{PIPELINE_SPANS}, SETUP_SPANS = {SETUP_SPANS}")
+    return _Span(name)
+
+
+def totals() -> dict:
+    """{name: (count, wall s, thread-CPU s)} of every span closed in this
+    process since the last :func:`reset_totals`, over all threads.  Wall
+    minus CPU is the time the thread spent off the CPU inside the span:
+    waiting for the interpreter lock, another lock, I/O or the
+    scheduler.  Where the thread clock counts scheduler ticks (10 ms on
+    the H100 machines measured), CPU is a sample: read it over many
+    spans."""
+    with _lock:
+        merged = _merged()
+        _add_into(merged, _baseline, -1)
+    return {name: (c, wall / 1e9, cpu / 1e9)
+            for name, (c, wall, cpu) in merged.items() if c}
+
+
+def reset_totals() -> None:
+    """Start the totals from zero."""
+    with _lock:
+        merged = _merged()
+        _baseline.clear()
+        _baseline.update(merged)
+
+
 TRACE_FILE = "trace.json"
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def span(name: str):
-    """The named range of one facade or train-step stage (``name`` must be
-    in SPANS or TRAIN_SPANS)."""
-    if name not in SPANS and name not in TRAIN_SPANS:
-        raise ValueError(f"unknown span {name!r}; SPANS = {SPANS}, "
-                         f"TRAIN_SPANS = {TRAIN_SPANS}")
-    return torch.profiler.record_function(name)
-
-
-class StepTimer:
-    """Rolling per-step wall-clock statistics (samples/sec logging)."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self._t0 = None
-        self.steps = 0
-        self.total = 0.0
-
-    def tick(self):
-        now = time.perf_counter()
-        if self._t0 is not None:
-            self.total += now - self._t0
-            self.steps += 1
-        self._t0 = now
-
-    def rate(self, items_per_step: int = 1) -> float:
-        if not self.steps:
-            return 0.0
-        return items_per_step * self.steps / self.total
-
-
 @contextlib.contextmanager
 def trace(log_dir: str, device=None):
-    """Profile the body (CPU activity, plus CUDA activity on the card) and
-    write a Chrome trace to ``<log_dir>/trace.json``.  ``device=None``
-    means the card.  On the card, raises if the trace holds no kernel."""
+    """Profile the body (CPU activity on every thread, so a pipeline's
+    producer thread too, plus CUDA activity on the card) and write a
+    Chrome trace to ``<log_dir>/trace.json``.  ``device=None`` means the
+    card.  On the card, raises if the trace holds no kernel."""
     from egonet_tpu_torch.device import resolve_device
     from torch.profiler import ProfilerActivity, profile
     dev = resolve_device(device)
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
+    try:
+        from torch.profiler import _ExperimentalConfig
+        kw = {"experimental_config": _ExperimentalConfig(
+            profile_all_threads=True)}
+    except (ImportError, TypeError):          # a torch without the option
+        kw = {}
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts, **kw) as prof:
         yield prof
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -165,6 +265,17 @@ class _Intervals:
             return self.ev[i]["name"]
         return None
 
+    def split(self, a, b) -> collections.Counter:
+        """[a, b) split by the intervals over it ('none' outside them)."""
+        out = collections.Counter()
+        i = max(bisect.bisect_right(self.starts, a) - 1, 0)
+        for e in self.ev[i:bisect.bisect_left(self.starts, b)]:
+            ov = min(b, e["ts"] + e["dur"]) - max(a, e["ts"])
+            if ov > 0:
+                out[e["name"]] += ov
+        out["none"] += (b - a) - sum(out.values())
+        return +out
+
 
 def _merge(intervals):
     out = []
@@ -188,8 +299,18 @@ def summarize_trace(log_dir: str, iters: int = 1, spans=SPANS) -> dict:
     'by_kernel': [(name, ms, launches)] (top 10), 'by_span': {span:
     ms} (device ms of the kernels and copies each facade stage launched;
     on the CPU, the stage's host ms), 'host_by_span': {span: host ms},
-    'idle': {'share', 'busy_ms', 'gaps':
-    [(ms, span)] (longest 5)} or None on the CPU, 'text'}."""
+    'idle': {'share', 'busy_ms', 'by_cause': {cause: ms per step},
+    'gaps': [(ms, cause)] (longest 5)} or None on the CPU, 'text'}.
+
+    An idle gap's cause is what the card waited for: follow the device
+    event that ends the gap to the host call that launched it.  A launch
+    made after the gap began means the card waited for the host: the gap
+    is split over the program spans the launching thread was in during it
+    (any span of :data:`SPANS`, :data:`TRAIN_SPANS`, :data:`PIPELINE_SPANS`
+    or :data:`SETUP_SPANS`; 'none' outside them), and a gap in the list is
+    named by the largest part.  A launch made before it is 'queued': the
+    work waited on the device's side.  'unknown': no launch record (or no
+    device event after the gap)."""
     with open(os.path.join(log_dir, TRACE_FILE)) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X" and "dur" in e]
@@ -206,8 +327,15 @@ def summarize_trace(log_dir: str, iters: int = 1, spans=SPANS) -> dict:
     for e in spans:
         per_thread[e["tid"]].append(e)
     host = {tid: _Intervals(evs) for tid, evs in per_thread.items()}
+    every = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"] in _NAMES:
+            every[e["tid"]].append(e)
+    opened = {tid: _Intervals(evs) for tid, evs in every.items()}
 
-    def host_span(tid, ts):
+    def span_at(tid, ts):
+        """The stage open on thread ``tid`` at ``ts``; for a thread with
+        none (autograd's), the one open on any thread."""
         if tid in host:
             return host[tid].at(ts)
         hits = [iv.at(ts) for iv in host.values()]
@@ -245,7 +373,7 @@ def summarize_trace(log_dir: str, iters: int = 1, spans=SPANS) -> dict:
                 kern_ms[e["name"]] += ms
                 kern_n[e["name"]] += 1
             src = launch.get(e.get("args", {}).get("correlation"))
-            name = (host_span(src["tid"], src["ts"]) if src is not None
+            name = (span_at(src["tid"], src["ts"]) if src is not None
                     else gpu_ann.at(e["ts"]))
             if name is not None:
                 by_span[name] += ms
@@ -256,14 +384,32 @@ def summarize_trace(log_dir: str, iters: int = 1, spans=SPANS) -> dict:
                      for k, ms in kern_ms.most_common(10)]
         busy = _merge([(e["ts"], e["ts"] + e["dur"]) for e in dev])
         busy_us = sum(b - a for a, b in busy)
-        gaps = []
+        first = {}                        # start time -> device event
+        for e in sorted(dev, key=lambda e: e["ts"]):
+            first.setdefault(e["ts"], e)
+        gaps, by_cause = [], collections.Counter()
         edges = [t0] + [x for iv in busy for x in iv] + [t1]
         for a, b in zip(edges[::2], edges[1::2]):
             if b > a:
-                gaps.append(((b - a) / 1e3, _gap_span(spans, a, b)))
+                nxt = first.get(b)
+                src = launch.get(nxt.get("args", {}).get("correlation")) \
+                    if nxt is not None else None
+                if src is None or src["ts"] <= a:
+                    parts = {"unknown" if src is None else "queued": b - a}
+                else:
+                    # for a launching thread without spans (autograd's),
+                    # a thread with one open when the gap began
+                    ivs = opened.get(src["tid"]) or next(
+                        (iv for iv in opened.values() if iv.at(a)), None)
+                    parts = (ivs.split(a, b) if ivs is not None
+                             else {"none": b - a})
+                for cause, us in parts.items():
+                    by_cause[cause] += us / 1e3 / iters
+                gaps.append(((b - a) / 1e3, max(parts, key=parts.get)))
         gaps.sort(key=lambda g: -g[0])
         idle = {"share": 1.0 - busy_us / (t1 - t0),
                 "busy_ms": busy_us / 1e3 / iters,
+                "by_cause": dict(by_cause.most_common()),
                 "gaps": gaps[:5]}
 
     lines = [f"window: {window:.3f} ms per step"
@@ -282,20 +428,13 @@ def summarize_trace(log_dir: str, iters: int = 1, spans=SPANS) -> dict:
         lines += [f"  {ms:9.3f} {n:7.1f}  {k[:100]}"
                   for k, ms, n in by_kernel]
     if idle:
-        lines.append("longest idle gaps (ms, host span open):")
-        lines += [f"  {ms:9.3f}  {s}" for ms, s in idle["gaps"]]
+        lines.append("idle by cause (ms per step):")
+        lines += [f"  {c:28s} {ms:9.3f}"
+                  for c, ms in idle["by_cause"].items()]
+        lines.append("longest idle gaps (ms, cause):")
+        lines += [f"  {ms:9.3f}  {c}" for ms, c in idle["gaps"]]
     return {"total_ms": total, "window_ms": window, "by_category": by_cat,
             "launches_by_category": launches, "by_kernel": by_kernel,
             "by_span": by_span, "host_by_span": host_by_span, "idle": idle,
             "text": "\n".join(lines)}
 
-
-def _gap_span(spans, a, b):
-    """The facade span that overlaps the gap [a, b) the most (None if no
-    span is open during it)."""
-    best, name = 0.0, None
-    for e in spans:
-        ov = min(b, e["ts"] + e["dur"]) - max(a, e["ts"])
-        if ov > best:
-            best, name = ov, e["name"]
-    return name
