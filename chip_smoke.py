@@ -36,13 +36,19 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    beside it, the cuDNN convs, the bound and the other tiles / plans of
    PED_ALT_TILES / PED_STENCIL_SWEEP (each also checked), then checked at
    batches 1, 3 and 5.
+3c. Rigid phase (``rigid`` line): the rigid stage's kernel
+   (``egonet::rigid_solve``) against its CPU kernel at N in RIGID_SIZES
+   with 32 and 33 points (angles within 1e-5 rad, translations equal, one
+   launch a call), then timed at N = 512 beside the torch-op solve it
+   replaced (device ms and host ms a call), with ptxas's registers.
 4. Slice phase: ``EgoNet(demo_config(), device="cuda")`` — full W48, bf16,
    seeded random weights, the precision harness's LS stats
    (``precision._plausible_ls_stats``: cuboids near a placed one) — runs 4
    synthetic 375x1242 frames with 6 boxes each through dispatch_annot_dict
    -> finalize -> post_process, writing KITTI txts to a temp dir.  The
    kernel launch counts are reset just before and read just after: the
-   tiled kernel's must grow by exactly 104 per HRNet forward.  Outputs
+   tiled kernel's must grow by exactly 104 per HRNet forward and the
+   rigid solve's (``egonet::rigid_solve``) by one per dispatch.  Outputs
    must be finite, every instance must get a txt line, and the kernel
    path must agree with the same model's unfused eval path (median |d ry|
    < 0.5 deg).
@@ -137,8 +143,9 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    checkpoint (fp32, Adam): bytes, save and restore seconds.
 9e. Mesh phase (``mesh`` line): the W48 slice (bf16) through
    ``EgoNet(mesh=DataMesh([cuda:0, cuda:0]))``: two shards of 16 at bucket
-   32 on the one card, 104 tiled launches per shard by the counter, then
-   104 stencil launches per shard with the stencil selected, each held
+   32 on the one card, 104 tiled launches and one rigid_solve launch per
+   shard by the counters, then 104 stencil launches per shard with the
+   stencil selected, each held
    against the single-device facade on the same batch (median |d ry| and
    |d alpha| at most 0.05 deg, max 0.5), and one dispatch of each facade
    (single, two shards) run under ``torch.cuda.set_sync_debug_mode
@@ -697,20 +704,111 @@ def _frames(np, n_frames=N_FRAMES, n_boxes=N_BOXES):
     return annot
 
 
+RIGID_SIZES = (1, 8, 384, 512, 513)
+RIGID_TIMED_N, RIGID_TIMED_CALLS = 512, 200
+
+
+def _cuboid_batch(np, rng, n, points):
+    """``n`` noisy rotated car cuboids, [n, 32, 3] center-relative (with a
+    camera-frame root before them when ``points`` is 33), fp32."""
+    from egonet_tpu_torch.data import cuboid
+    preds = []
+    for _ in range(n):
+        box = cuboid.construct_box_3d(3.9 + 0.2 * rng.randn(), 1.5, 1.7)
+        rot = cuboid.rot_y_matrix(float(rng.uniform(-np.pi, np.pi)))
+        preds.append((rot @ (box[:, 1:] - box[:, :1])).T
+                     + 0.02 * rng.randn(32, 3))
+    preds = np.stack(preds)
+    if points == 33:
+        root = rng.uniform([-20, -1, 2], [20, 2, 60], (n, 1, 3))
+        preds = np.concatenate([root, preds], axis=1)
+    return preds.astype(np.float32)
+
+
+def rigid_phase(torch, np, card):
+    """The rigid stage's kernel (``egonet::rigid_solve``, one thread a
+    crop): at each N of RIGID_SIZES with 32 and 33 points, the CUDA kernel
+    against the CPU kernel (the same routine of csrc/rigid_solve.cuh:
+    angles within 1e-5 rad, translations equal), one launch a call; then at
+    N = RIGID_TIMED_N, RIGID_TIMED_CALLS back-to-back calls timed with CUDA
+    events and the host clock beside the torch-op solve it replaced
+    (``geometry/rigid.six_dof_from_cuboids``), whose angles it must match
+    within 1e-5 rad; ptxas's registers and spills from the build log."""
+    from egonet_tpu_torch.geometry import rigid
+    from egonet_tpu_torch.ops import _build
+    from egonet_tpu_torch.ops.rigid_solve import rigid_solve
+    rng = np.random.RandomState(20)
+    rows = []
+    for points in (32, 33):
+        for n in RIGID_SIZES:
+            kpts = torch.from_numpy(_cuboid_batch(np, rng, n, points))
+            want = rigid_solve(kpts)
+            before = rigid_solve.launches
+            got = rigid_solve(kpts.cuda())
+            torch.cuda.synchronize()
+            assert rigid_solve.launches == before + 1, (n, points)
+            got = got.cpu()
+            d = (got[:, :3] - want[:, :3]).abs().max().item()
+            rows.append({"n": n, "points": points, "max_abs_d_angle": d})
+            assert d < 1e-5 and torch.equal(got[:, 3:], want[:, 3:]), rows
+
+    kpts = torch.from_numpy(_cuboid_batch(np, rng, RIGID_TIMED_N, 32)).cuda()
+
+    def timing(fn):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        for _ in range(RIGID_TIMED_CALLS):
+            fn()
+        host_ms = (time.perf_counter() - h0) * 1e3 / RIGID_TIMED_CALLS
+        end.record()
+        torch.cuda.synchronize()
+        return {"ms_per_call": start.elapsed_time(end) / RIGID_TIMED_CALLS,
+                "host_ms_per_call": host_ms}
+
+    six = rigid_solve(kpts)
+    angles, _ = rigid.six_dof_from_cuboids(kpts)
+    d = (six[:, :3] - angles).abs().max().item()
+    assert d < 1e-5, d
+    log = _build.BUILD_INFO.get("rigid_solve", {}).get("log", "")
+    row = {"card": card, "checks": rows,
+           "timed_n": RIGID_TIMED_N, "calls": RIGID_TIMED_CALLS,
+           "op": timing(lambda: rigid_solve(kpts)),
+           "torch_ops": timing(lambda: rigid.six_dof_from_cuboids(kpts)),
+           "max_abs_d_angle_vs_torch_ops": d,
+           "ptxas": [ln.strip() for ln in log.splitlines()
+                     if "registers" in ln or "spill" in ln]}
+    print(json.dumps({"rigid": row}), flush=True)
+    return row
+
+
+def _launch_counts(fb, st):
+    """Set both fused kernels' and the rigid solve's launch counts to 0;
+    returns a function that reads them as {"tiled": n, "stencil": n,
+    "rigid": n}."""
+    from egonet_tpu_torch.ops.rigid_solve import rigid_solve
+    counted = {"tiled": fb.fused_basic_block,
+               "stencil": st.fused_basic_block_stencil, "rigid": rigid_solve}
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    return lambda: {k: w.launches for k, w in counted.items()}
+
+
 def _drive(torch, model, annot, fb, st, out_dir):
-    """One batch through dispatch -> finalize -> post_process, with both
+    """One batch through dispatch -> finalize -> post_process, with the
     kernels' launch counts set to 0 just before and read just after.
     Checks that every instance got a 17-field txt line.  Returns (records,
-    {"tiled": n, "stencil": n}, seconds)."""
-    fb.fused_basic_block.launches = 0
-    st.fused_basic_block_stencil.launches = 0
+    {"tiled": n, "stencil": n, "rigid": n}, seconds)."""
+    read = _launch_counts(fb, st)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     records = model.finalize(model.dispatch_annot_dict(annot))
     model.post_process(records, save_dict={"flag": True, "save_dir": out_dir})
     seconds = time.perf_counter() - t0
-    launches = {"tiled": fb.fused_basic_block.launches,
-                "stencil": st.fused_basic_block_stencil.launches}
+    launches = read()
     n_lines = 0
     for name in sorted(os.listdir(out_dir)):
         with open(os.path.join(out_dir, name)) as f:
@@ -759,7 +857,7 @@ def slice_phase(torch, np, fb, st):
     with tempfile.TemporaryDirectory() as out_dir:
         records, launches, first_s = _drive(torch, model, annot, fb, st,
                                             out_dir)
-    assert launches == {"tiled": 104, "stencil": 0}, launches
+    assert launches == {"tiled": 104, "stencil": 0, "rigid": 1}, launches
 
     ry = _ry(np, records)
     for p, rec in records.items():
@@ -797,7 +895,7 @@ def stencil_slice_phase(torch, np, fb, st, model, annot, ry_tiled,
     with tempfile.TemporaryDirectory() as out_dir:
         records, launches, first_s = _drive(torch, model, annot, fb, st,
                                             out_dir)
-    assert launches == {"tiled": 0, "stencil": 104}, launches
+    assert launches == {"tiled": 0, "stencil": 104, "rigid": 1}, launches
     ry = _ry(np, records)
     assert np.isfinite(ry).all()
     d_tiled, d_unfused = _d_deg(np, ry, ry_tiled), _d_deg(np, ry, ry_unfused)
@@ -1520,7 +1618,7 @@ def native_phase(torch, np, fb, st, here, annot):
     with tempfile.TemporaryDirectory() as out_dir:
         records, launches, first_s = _drive(torch, model, annot, fb, st,
                                             out_dir)
-    assert launches == {"tiled": 0, "stencil": 0}, launches
+    assert launches == {"tiled": 0, "stencil": 0, "rigid": 1}, launches
     ry = _ry(np, records)
     assert np.isfinite(ry).all()
     model32 = _slice_model(torch, native_demo_config(), torch.float32)
@@ -1644,8 +1742,9 @@ def train_ped_phase(torch, np, fb, st, root, annot, card):
                                        "max": float(d.max())}
     row["seconds"] = time.perf_counter() - t0
     print(json.dumps({"train_ped": row}), flush=True)
-    assert launches == {"tiled": {"tiled": 104, "stencil": 0},
-                        "stencil": {"tiled": 0, "stencil": 104}}, launches
+    assert launches == {"tiled": {"tiled": 104, "stencil": 0, "rigid": 1},
+                        "stencil": {"tiled": 0, "stencil": 104, "rigid": 1}
+                        }, launches
     for k in ("d_ry_tiled_vs_unfused_deg", "d_ry_stencil_vs_unfused_deg",
               "d_ry_stencil_vs_tiled_deg"):
         assert row[k]["median"] < 0.5, row
@@ -1715,7 +1814,8 @@ def options_phase(torch, np, fb, st, annot, ry_w48, root, card):
                          torch, model, annot, iters=5)}
         del model
         torch.cuda.empty_cache()
-        assert launches == {"tiled": 104, "stencil": 0}, (name, launches)
+        assert launches == {"tiled": 104, "stencil": 0, "rigid": 1}, \
+            (name, launches)
     x = torch.randn(N_FRAMES * N_BOXES, 3, 256, 256, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(4))
     heads = (("heatmap_pixel_shuffle", {"head_type": "heatmap",
@@ -2146,15 +2246,12 @@ RESUME_EPOCHS, RESUME_CUT, RESUME_BATCH = 3, 2, 4   # 6 steps an epoch
 
 
 def _mesh_batch(torch, fb, st, model, annot):
-    """One sharded batch, both kernels' launch counts set to 0 just before
+    """One sharded batch, the kernels' launch counts set to 0 just before
     and read just after: (records, launches, rows of the padded batch)."""
-    fb.fused_basic_block.launches = 0
-    st.fused_basic_block_stencil.launches = 0
+    read = _launch_counts(fb, st)
     pending = model.dispatch_annot_dict(annot)
     records = model.finalize(pending)
-    launches = {"tiled": fb.fused_basic_block.launches,
-                "stencil": st.fused_basic_block_stencil.launches}
-    return records, launches, int(pending[0].shape[0])
+    return records, read(), int(pending[0].shape[0])
 
 
 def _gap_row(np, got, want):
@@ -2176,13 +2273,14 @@ def _gap_row(np, got, want):
 def mesh_phase(torch, np, fb, st, annot, card):
     """The W48 slice (bf16, 4 frames x 6 boxes) through
     ``EgoNet(mesh=DataMesh([cuda:0, cuda:0]))``: two shards of 16 at
-    bucket 32 on the one card, 104 tiled launches per shard by the counter
-    (then 104 stencil launches per shard with the stencil selected), each
-    held against the single-device facade on the same batch (the serve
-    bars), and a dispatch of each facade under the sync debug mode
-    (:func:`_sync_free`); then a served pass through a PoseServer over
-    the same mesh, 104 tiled launches per shard of every micro-batch,
-    every response held against the single-device facade."""
+    bucket 32 on the one card, 104 tiled launches and one rigid_solve
+    launch per shard by the counters (then 104 stencil launches per shard
+    with the stencil selected), each held against the single-device
+    facade on the same batch (the serve bars), and a dispatch of each
+    facade under the sync debug mode (:func:`_sync_free`); then a served
+    pass through a PoseServer over the same mesh, 104 tiled launches per
+    shard of every micro-batch, every response held against the
+    single-device facade."""
     from egonet_tpu_torch.config import demo_config
     from egonet_tpu_torch.models.egonet import EgoNet
     from egonet_tpu_torch.parallel import mesh
@@ -2203,10 +2301,13 @@ def mesh_phase(torch, np, fb, st, annot, card):
         records, launches, rows = _mesh_batch(torch, fb, st, sharded, annot)
         other = "stencil" if path == "tiled" else "tiled"
         assert rows == 32, rows
-        assert launches == {path: 104 * MESH_SHARDS, other: 0}, launches
+        assert launches == {path: 104 * MESH_SHARDS, other: 0,
+                            "rigid": MESH_SHARDS}, launches
         n_inst = N_FRAMES * N_BOXES
         row[path] = {"bucket": rows, "launches": launches[path],
                      "launches_per_shard": launches[path] // MESH_SHARDS,
+                     "rigid_launches_per_shard":
+                         launches["rigid"] // MESH_SHARDS,
                      "vs_single": _gap_row(np, records, want),
                      # a dispatch of each facade under
                      # set_sync_debug_mode("error"): max |d ry| to single
@@ -2927,7 +3028,7 @@ def _mc_mesh(torch, np, fb, st, n):
         want = single(annot)
         records, launches, rows = _mesh_batch(torch, fb, st, sharded, annot)
         other = "stencil" if path == "tiled" else "tiled"
-        assert launches == {path: 104 * n, other: 0}, launches
+        assert launches == {path: 104 * n, other: 0, "rigid": n}, launches
         checked = {"single": _sync_free(torch, single, annot),
                    "mesh": _sync_free(torch, sharded, annot)}
         row[path] = {
@@ -3551,6 +3652,7 @@ def main(argv=None) -> int:
                   ssweep, ssweep_lib)
     ped_rows = timed("kernel_ped", kernel_ped_phase, torch, fb, st,
                      ped_tiled, ped_tiled_lib, ped_stencil, ped_stencil_lib)
+    timed("rigid", rigid_phase, torch, np, card)
     result, model, annot, ry, ry_u = timed("slice", slice_phase, torch, np,
                                            fb, st)
     print(json.dumps({"slice": result}), flush=True)

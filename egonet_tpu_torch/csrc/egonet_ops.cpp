@@ -1,16 +1,21 @@
-// Both fused BasicBlock kernels as torch operators, defined once, in C++:
+// The port's hand-written kernels as torch operators, defined once, in C++:
 //
 //   egonet::fused_basic_block(Tensor x, Tensor w1, Tensor b1, Tensor w2,
 //                             Tensor b2) -> Tensor
 //   egonet::fused_basic_block_stencil(<the same>) -> Tensor
+//   egonet::rigid_solve(Tensor kpts_3d) -> Tensor
 //
-// y = relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2 + x) on NHWC
-// operands, batch norm folded (ops/fused_block.py).  This library holds
-// the schemas, the CPU kernels (the plain version) and the Meta kernels
-// (the contract, for torch.export and fake tensors), plus the launch
-// counts.  libegonet_ops_cuda.so adds the CUDA kernels.  Both load with
-// torch.ops.load_library and nothing else: an exported program that holds
-// these ops runs from torch and the libraries alone (io/export.py).
+// The first two: y = relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2 + x)
+// on NHWC operands, batch norm folded (ops/fused_block.py).  The third: the
+// facade's rigid stage, [N, P, 3] fp32 points -> [N, 6] (rx, ry, rz, tx,
+// ty, tz) (ops/rigid_solve.py, csrc/rigid_solve.cuh).  This library holds
+// the schemas, the CPU kernels (the plain version of the blocks; the rigid
+// solve's per-crop routine in a loop, the arithmetic the card runs) and
+// the Meta kernels (the contract, for torch.export and fake tensors), plus
+// the launch counts.  libegonet_ops_cuda.so adds the CUDA kernels.  Both
+// load with torch.ops.load_library and nothing else: an exported program
+// that holds these ops runs from torch and the libraries alone
+// (io/export.py).
 //
 // Built by ops/_build.py with the host C++ compiler against the installed
 // torch's headers and libraries (c10, torch_cpu); it includes
@@ -19,6 +24,7 @@
 #include <ATen/TensorOperators.h>
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/conv2d.h>
+#include <ATen/ops/empty.h>
 #include <ATen/ops/empty_like.h>
 #include <ATen/ops/relu.h>
 #include <torch/library.h>
@@ -26,6 +32,7 @@
 #include <atomic>
 
 #include "egonet_ops.h"
+#include "rigid_solve.cuh"
 
 namespace {
 
@@ -66,6 +73,23 @@ at::Tensor meta(const at::Tensor& x, const at::Tensor& w1,
   return at::empty_like(x);
 }
 
+at::Tensor rigid_solve_cpu(const at::Tensor& kpts) {
+  egonet::check_rigid(kpts);
+  const int64_t n = kpts.size(0), p = kpts.size(1);
+  at::Tensor out = at::empty({n, 6}, kpts.options());
+  const float* in = kpts.const_data_ptr<float>();
+  float* o = out.mutable_data_ptr<float>();
+  for (int64_t i = 0; i < n; ++i) {
+    egonet::rigid_solve_one(in + i * p * 3, int(p), o + i * 6);
+  }
+  return out;
+}
+
+at::Tensor rigid_solve_meta(const at::Tensor& kpts) {
+  egonet::check_rigid(kpts);
+  return at::empty_symint({kpts.sym_size(0), 6}, kpts.options());
+}
+
 }  // namespace
 
 // called through ctypes too, so they throw nothing: an unknown op reads -1
@@ -92,14 +116,17 @@ TORCH_LIBRARY(egonet, m) {
   m.def(
       "fused_basic_block_stencil(Tensor x, Tensor w1, Tensor b1, Tensor w2, "
       "Tensor b2) -> Tensor");
+  m.def("rigid_solve(Tensor kpts_3d) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(egonet, CPU, m) {
   m.impl("fused_basic_block", &plain);
   m.impl("fused_basic_block_stencil", &plain);
+  m.impl("rigid_solve", &rigid_solve_cpu);
 }
 
 TORCH_LIBRARY_IMPL(egonet, Meta, m) {
   m.impl("fused_basic_block", &meta<egonet::kTiled>);
   m.impl("fused_basic_block_stencil", &meta<egonet::kStencil>);
+  m.impl("rigid_solve", &rigid_solve_meta);
 }

@@ -9,7 +9,7 @@
 #include <cstdint>
 
 extern "C" {
-// Kernel launches of op `op` (kTiled or kStencil), counted by
+// Kernel launches of op `op` (kTiled, kStencil or kRigid), counted by
 // libegonet_ops.so where a kernel launches: the CUDA kernels of
 // egonet_ops_cuda.cpp and the direct launches of ops/fused_block*.py
 // (ctypes), and nowhere else.
@@ -20,7 +20,7 @@ void egonet_add_launch(int op);
 
 namespace egonet {
 
-enum Op : int { kTiled = 0, kStencil = 1, kOps = 2 };
+enum Op : int { kTiled = 0, kStencil = 1, kRigid = 2, kOps = 3 };
 
 // the widest channel count the stencil kernel's default library serves
 // (ops/fused_block_stencil.py, _MAX_C), from the prelude ops/_build.py
@@ -68,6 +68,19 @@ inline void check_contract(const at::Tensor& x, const at::Tensor& w1,
     TORCH_CHECK_VALUE(c <= kStencilMaxC, "the stencil kernel takes C <= ",
                       kStencilMaxC, ", got ", c);
   }
+}
+
+// egonet::rigid_solve's operand (ops/rigid_solve.py): contiguous fp32
+// [N, P, 3] with P = 32 or 33, checked without data for the Meta kernel.
+inline void check_rigid(const at::Tensor& kpts) {
+  TORCH_CHECK_VALUE(kpts.scalar_type() == at::kFloat && kpts.dim() == 3 &&
+                        kpts.is_contiguous(),
+                    "kpts_3d must be a contiguous fp32 [N, P, 3] tensor, got ",
+                    kpts.scalar_type(), " ", kpts.sym_sizes());
+  const c10::SymInt p = kpts.sym_size(1);
+  TORCH_CHECK_VALUE(kpts.sym_size(2) == 3 && (p == 32 || p == 33),
+                    "kpts_3d must hold 32 or 33 points of 3 coordinates, got ",
+                    kpts.sym_sizes());
 }
 
 }  // namespace egonet

@@ -1,15 +1,18 @@
-// The CUDA kernels of egonet::fused_basic_block and
-// egonet::fused_basic_block_stencil (the schemas, CPU and Meta kernels are
-// egonet_ops.cpp's): check the operands, take the width's default plan and
-// launch the Hopper kernel of fused_basic_block.cu /
-// fused_basic_block_stencil.cu through its plain C entry point, on the
-// current stream of x's device with that device current.
+// The CUDA kernels of the operators whose schemas, CPU and Meta kernels are
+// egonet_ops.cpp's.  egonet::fused_basic_block and
+// egonet::fused_basic_block_stencil: check the operands, take the width's
+// default plan and launch the Hopper kernel of fused_basic_block.cu /
+// fused_basic_block_stencil.cu through its plain C entry point.
+// egonet::rigid_solve: check the operand and launch rigid_solve.cu's one
+// kernel over the batch.  Each on the current stream of its input's device
+// with that device current.
 //
 // Host C++ only, built by ops/_build.py with the host compiler against
 // torch's headers (c10/cuda for the device guard and the stream) and
-// linked against libegonet_ops.so (the launch counts) and the two default
-// kernel libraries, found beside it through the rpath $ORIGIN.  The kernel
-// sources stay free of torch's headers, so their nvcc builds take seconds.
+// linked against libegonet_ops.so (the launch counts) and the kernel
+// libraries (the two default fused-block libraries and librigid_solve.so),
+// found beside it through the rpath $ORIGIN.  The kernel sources stay free
+// of torch's headers, so their nvcc builds take seconds.
 //
 // The plans are defined once, in Python (plan_for / takes of
 // ops/fused_block.py and ops/fused_block_stencil.py): ops/_build.py writes
@@ -19,6 +22,7 @@
 // rebuilds the library.
 
 #include <ATen/core/Tensor.h>
+#include <ATen/ops/empty.h>
 #include <ATen/ops/empty_like.h>
 #include <c10/cuda/CUDAException.h>
 #include <c10/cuda/CUDAGuard.h>
@@ -59,6 +63,9 @@ int egonet_fused_basic_block_stencil(const void* x, const void* w1,
                                      void* stream);
 int egonet_fused_basic_block_stencil_clusters(int C, StencilPlan p,
                                               int* clusters);
+// rigid_solve.cu: 0 or a cudaError_t
+int egonet_rigid_solve(const float* kpts, float* out, int n, int p,
+                       void* stream);
 }
 
 namespace {
@@ -174,9 +181,27 @@ at::Tensor fused_cuda(const at::Tensor& x, const at::Tensor& w1,
   return y;
 }
 
+at::Tensor rigid_solve_cuda(const at::Tensor& kpts) {
+  egonet::check_rigid(kpts);
+  const c10::cuda::CUDAGuard guard(kpts.device());
+  const int n = int(kpts.size(0)), p = int(kpts.size(1));
+  at::Tensor out = at::empty({kpts.size(0), 6}, kpts.options());
+  if (n == 0) return out;
+  void* stream =
+      c10::cuda::getCurrentCUDAStream(kpts.device().index()).stream();
+  const int err = egonet_rigid_solve(kpts.const_data_ptr<float>(),
+                                     out.mutable_data_ptr<float>(), n, p,
+                                     stream);
+  TORCH_CHECK(err == 0, "rigid_solve launch failed: ", cuda_error(err),
+              " (N=", n, " P=", p, ")");
+  egonet_add_launch(egonet::kRigid);
+  return out;
+}
+
 }  // namespace
 
 TORCH_LIBRARY_IMPL(egonet, CUDA, m) {
   m.impl("fused_basic_block", &fused_cuda<egonet::kTiled>);
   m.impl("fused_basic_block_stencil", &fused_cuda<egonet::kStencil>);
+  m.impl("rigid_solve", &rigid_solve_cuda);
 }

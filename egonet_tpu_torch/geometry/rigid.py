@@ -1,7 +1,9 @@
 """Batched orientation recovery in fp32 torch: template fit, rigid
 alignment (Horn quaternion with a fixed-schedule Jacobi eigensolver, or
 SVD with the reflection fix), euler extraction and observation angles.
-Port of ``egonet_tpu/geometry/rigid.py``.
+Port of ``egonet_tpu/geometry/rigid.py``.  The facade's rigid stage runs
+the quaternion path as one kernel, ``ops/rigid_solve.py``; the solve here
+is its tests' reference and serves the callers outside the facade.
 
 Conventions: euler order as scipy ``as_euler('yxz')`` (R = Rz(c) Rx(b)
 Ry(a)), reordered to (rx, ry, rz); template h/l/w from the 4 parallel edges

@@ -21,16 +21,17 @@ architecture.
 The program is ``EgoNet._core`` in canvas mode, ``(images [n_img, H, W, 3]
 uint8, meta [bucket, META_COLS] f32)``; each instance's frame index is read
 from meta's column 8 on the device (as the JAX artifact reads it), so the
-graph holds no request's indices.  Both fused BasicBlock kernels are torch
-operators defined in C++ (``egonet::fused_basic_block``,
-``egonet::fused_basic_block_stencil``; ``csrc/egonet_ops*.cpp``): each
-fusable HRNet block is one node of the graph, and the program exported on
-the card launches the kernel there.
+graph holds no request's indices.  Both fused BasicBlock kernels and the
+rigid solve are torch operators defined in C++ (``egonet::fused_basic_block``,
+``egonet::fused_basic_block_stencil``, ``egonet::rigid_solve``;
+``csrc/egonet_ops*.cpp``): each fusable HRNet block is one node of the
+graph, the rigid stage another, and the program exported on the card
+launches the kernels there.
 
 An artifact directory stands alone, as the JAX package's does (a Pallas
 kernel rides in its StableHLO): :func:`export_shape_set` copies the
 operator libraries into it (``libegonet_ops.so``, and from the card
-``libegonet_ops_cuda.so`` with the two kernel libraries it links, found
+``libegonet_ops_cuda.so`` with the kernel libraries it links, found
 beside it through the rpath ``$ORIGIN``) and names them in the manifest
 with the torch and CUDA versions they were built against.
 :func:`load_exported` loads them with ``torch.ops.load_library`` before

@@ -14,7 +14,9 @@ full canvases); the device runs
                                      PoseNetTPU, cuDNN convs)
     inverse affine to screen coords                  (batched fp32 matmul)
     LS-normalize -> FC lifter -> un-normalize        (models/fc_lifter.py)
-    template fit + rigid solve + euler + alpha       (geometry/rigid.py)
+    template fit + rigid solve + euler               (ops/rigid_solve.py:
+                                     one hand-written kernel)
+    alpha                                            (geometry/rigid.py)
 
 and returns ONE flat [N, D] fp32 array, copied to pinned host memory
 without blocking; ``finalize`` waits on a CUDA event and regroups it per
@@ -60,6 +62,7 @@ from egonet_tpu_torch.models.factory import build_heatmap_model
 from egonet_tpu_torch.models.fc_lifter import build_fc_model
 from egonet_tpu_torch.models.init import numpy_init
 from egonet_tpu_torch.ops import affine, packing
+from egonet_tpu_torch.ops.rigid_solve import rigid_solve
 from egonet_tpu_torch.parallel import mesh as pmesh
 from egonet_tpu_torch.utils.profiling import span
 
@@ -326,13 +329,11 @@ class EgoNet:
             kpts_3d = pred.reshape(n, -1, 3)
 
         with span("rigid"):
-            if kpts_3d.shape[1] == 33:
-                # 'R3d+T': slot 0 is the predicted camera-frame root, slots
-                # 1..32 the center-relative cuboid
-                angles, _ = rigid.six_dof_from_cuboids(kpts_3d[:, 1:, :])
-                translations = kpts_3d[:, 0, :]
-            else:
-                angles, translations = rigid.six_dof_from_cuboids(kpts_3d)
+            # one launch: (rx, ry, rz) of the cuboid and the translation,
+            # slot 0 (with the 33 points of 'R3d+T', the predicted
+            # camera-frame root before the center-relative cuboid)
+            six = rigid_solve(kpts_3d.float())
+            angles, translations = six[:, 0:3], six[:, 3:6]
         with span("alpha"):
             ry = angles[:, 1]
             if alpha_mode == "trans":

@@ -40,7 +40,8 @@ import torch
 #                   kernels run here)
 #   inverse_affine  local -> screen coordinates
 #   lifter          LS-normalize -> FC lifter -> un-normalize
-#   rigid           template fit and rigid solve (six_dof_from_cuboids)
+#   rigid           template fit, rigid solve and euler angles: one launch
+#                   of the operator egonet::rigid_solve (ops/rigid_solve.py)
 #   alpha           the observation angle
 #   d2h             the device->host copy of the flat output
 #   finalize        waiting for that copy and regrouping per image
@@ -224,6 +225,8 @@ def kernel_category(name: str) -> str:
         return "fused_basic_block_stencil"
     if "fused_basic_block" in low:
         return "fused_basic_block"
+    if "rigid_solve" in low:
+        return "rigid_solve"
     if any(k in low for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad",
                               "implicit", "winograd", "nchwtonhwc",
                               "nhwctonchw")):

@@ -170,9 +170,11 @@ def test_graph_holds_one_node_per_block(model, exported):
     for b in BUCKETS:
         assert export.fused_nodes(programs[b]) == n_blocks
         assert manifest["artifacts"][str(b)]["fused_nodes"] == n_blocks
-    targets = {str(n.target) for n in programs[8].graph.nodes
-               if n.op == "call_function"}
+    targets = [str(n.target) for n in programs[8].graph.nodes
+               if n.op == "call_function"]
     assert "egonet.fused_basic_block.default" in targets
+    # the rigid stage: one node of its own operator
+    assert targets.count("egonet.rigid_solve.default") == 1
 
 
 def test_artifacts_hold_no_weights(model, exported):

@@ -224,6 +224,8 @@ def test_trace_needs_a_card_by_default(tmp_path):
     ("void fused_basic_block_kernel<2, 3, 48>(...)", "fused_basic_block"),
     ("void fused_basic_block_stencil_kernel<1, 2, 3>(...)",
      "fused_basic_block_stencil"),
+    ("(anonymous namespace)::rigid_solve_kernel(float const*, float*, int, "
+     "int)", "rigid_solve"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
      "conv"),
     ("void cudnn::bn_fw_inf_1C11_kernel_NCHW<float>(...)", "conv"),

@@ -1,6 +1,15 @@
 """The port's rigid solve, euler extraction and observation angles
 (egonet_tpu_torch/geometry/rigid.py) against egonet_tpu's, on the CPU, to
-1e-5 rad."""
+1e-5 rad; and the facade's one-kernel rigid stage, the operator
+``egonet::rigid_solve`` (ops/rigid_solve.py, csrc/rigid_solve.cuh): its CPU
+kernel against the JAX package's solve (angles to the same 1e-5 rad,
+translations bit-equal), the header's tables against constants.py, its
+schema, Meta kernel and contract.  The CUDA kernel's own tests are in
+tests/test_torch_rigid_cuda.py (no JAX there)."""
+
+import inspect
+import os
+import re
 
 import numpy as np
 import pytest
@@ -10,8 +19,11 @@ from scipy.spatial.transform import Rotation
 
 from egonet_tpu.data import cuboid as jcb
 from egonet_tpu.geometry import rigid as jr
+from egonet_tpu_torch import constants
 from egonet_tpu_torch.data import cuboid as tcb
 from egonet_tpu_torch.geometry import rigid as tr
+from egonet_tpu_torch.ops import _build
+from egonet_tpu_torch.ops.rigid_solve import rigid_solve
 
 torch.set_num_threads(1)
 TOL = 1e-5
@@ -122,3 +134,136 @@ def test_observation_angles_match(rng):
                                     jnp.float32(f), jnp.asarray(cx))
     assert _angdiff(p_t.numpy(), np.asarray(p_j)).max() < TOL
     assert (np.abs(a_t) <= np.pi + 1e-6).all()
+
+
+# ------------------------------------------------- egonet::rigid_solve
+
+HEADER = os.path.join(os.path.dirname(_build.__file__), os.pardir, "csrc",
+                      "rigid_solve.cuh")
+
+
+def _with_root(rng, preds):
+    """'R3d+T' rows: a camera-frame root in slot 0, then the cuboid."""
+    root = np.stack([rng.uniform(-20, 20, len(preds)),
+                     rng.uniform(-1, 2, len(preds)),
+                     rng.uniform(2, 60, len(preds))], 1)
+    return np.concatenate([root[:, None].astype(np.float32), preds], axis=1)
+
+
+def _check_op_against_jax(kpts):
+    """The op's angles within TOL of the JAX package's solve of the cuboid
+    (slots 1..32 with a root), its translations slot 0 bit for bit."""
+    six = rigid_solve(torch.from_numpy(kpts))
+    assert six.shape == (len(kpts), 6) and six.dtype == torch.float32
+    cuboid = kpts[:, 1:] if kpts.shape[1] == 33 else kpts
+    a_j, t_j = jr.six_dof_from_cuboids(jnp.asarray(cuboid))
+    assert _angdiff(six[:, :3].numpy(), np.asarray(a_j)).max() < TOL
+    np.testing.assert_array_equal(six[:, 3:].numpy(), kpts[:, 0])
+    if kpts.shape[1] == 32:
+        np.testing.assert_array_equal(six[:, 3:].numpy(), np.asarray(t_j))
+    return six
+
+
+@pytest.mark.parametrize("points", [32, 33])
+@pytest.mark.parametrize("n", [1, 7, 512])
+def test_rigid_solve_op_matches_jax(rng, n, points):
+    preds = _noisy_cuboids(rng, n=n)
+    _check_op_against_jax(preds if points == 32 else _with_root(rng, preds))
+
+
+@pytest.mark.parametrize("points", [32, 33])
+def test_rigid_solve_op_degenerate_covariance(rng, points):
+    """Cuboids collapsed to one point: the template is all zeros, so H and
+    Horn's K are zero and every one of the 36 Jacobi rotations takes the
+    ``kpq == 0`` branch (t = 0); the quaternion is the first eigenvector
+    (a four-way tie), the rotation the identity.  Mixed with noisy crops in
+    one batch, which keep their own answers."""
+    spots = rng.uniform(-5, 5, (4, 1, 3)).astype(np.float32)
+    flat = np.repeat(spots, 32, axis=1)
+    preds = np.concatenate([flat, _noisy_cuboids(rng, n=4)])
+    kpts = preds if points == 32 else _with_root(rng, preds)
+    six = _check_op_against_jax(kpts)
+    np.testing.assert_array_equal(six[:4, :3].numpy(), np.zeros((4, 3)))
+
+
+def _header_macro(name):
+    with open(HEADER) as f:
+        text = f.read()
+    body = re.search(rf"#define {name} (.+)", text).group(1)
+    return [float(v.rstrip("f")) for v in re.findall(r"[-\d.]+f?", body)]
+
+
+def test_header_tables_are_the_constants():
+    """The kernel's edge table, interpolation coefficients and sweep count
+    are constants.py's and _jacobi_eig4's."""
+    parents, children = constants.INTERP_DICT["bbox12"]
+    assert _header_macro("EGONET_RIGID_EDGE_PARENT") == (parents - 1).tolist()
+    assert _header_macro("EGONET_RIGID_EDGE_CHILD") == (children - 1).tolist()
+    coef = _header_macro("EGONET_RIGID_INTERP_COEF")
+    assert np.float32(coef).tolist() == \
+        np.float32(constants.DEFAULT_INTERP_COEF).tolist()
+    sweeps = inspect.signature(tr._jacobi_eig4).parameters["sweeps"].default
+    assert _header_macro("EGONET_RIGID_SWEEPS") == [sweeps]
+
+
+def test_rigid_solve_schema():
+    _build.load_ops("cpu")
+    assert str(torch.ops.egonet.rigid_solve.default._schema) == \
+        "egonet::rigid_solve(Tensor kpts_3d) -> Tensor"
+
+
+@pytest.mark.parametrize("n,points", [(1, 32), (9, 33), (64, 32)])
+def test_rigid_solve_opcheck(rng, n, points):
+    """Schema, Meta kernel (with symbolic shapes), CPU kernel and the
+    dispatcher's autograd and AOT checks, against each other."""
+    _build.load_ops("cpu")
+    preds = _noisy_cuboids(rng, n=n)
+    kpts = preds if points == 32 else _with_root(rng, preds)
+    torch.library.opcheck(torch.ops.egonet.rigid_solve.default,
+                          (torch.from_numpy(kpts),))
+
+
+RIGID_BREACHES = {
+    "fp64": ((4, 32, 3), torch.float64, False),
+    "bf16": ((4, 32, 3), torch.bfloat16, False),
+    "31_points": ((4, 31, 3), torch.float32, False),
+    "34_points": ((4, 34, 3), torch.float32, False),
+    "2_coordinates": ((4, 32, 2), torch.float32, False),
+    "2d": ((4, 96), torch.float32, False),
+    "strided": ((32, 4, 3), torch.float32, True),
+}
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+@pytest.mark.parametrize("name", sorted(RIGID_BREACHES))
+def test_rigid_solve_refuses_every_breach(name, device):
+    _build.load_ops("cpu")
+    shape, dtype, strided = RIGID_BREACHES[name]
+    x = torch.zeros(shape, dtype=dtype, device=device)
+    if strided:
+        x = x.transpose(0, 1)
+    with pytest.raises(ValueError):
+        torch.ops.egonet.rigid_solve(x)
+
+
+@pytest.mark.parametrize("points", [32, 33])
+def test_rigid_solve_meta_kernel_shapes_the_output(points):
+    _build.load_ops("cpu")
+    y = torch.ops.egonet.rigid_solve(torch.empty(300, points, 3,
+                                                 device="meta"))
+    assert y.shape == (300, 6) and y.dtype == torch.float32 and y.is_meta
+
+
+def test_rigid_solve_counts_no_cpu_launch(rng):
+    """The count is the CUDA kernel's: the CPU kernel adds nothing, and the
+    counter is apart from the fused kernels'."""
+    saved = [_build.launches(op) for op in
+             (_build.TILED, _build.STENCIL, _build.RIGID)]
+    try:
+        rigid_solve.launches = 5
+        rigid_solve(torch.from_numpy(_noisy_cuboids(rng, n=3)))
+        assert _build.launches(_build.RIGID) == rigid_solve.launches == 5
+        assert [_build.launches(op) for op in (_build.TILED, _build.STENCIL)] \
+            == saved[:2]
+    finally:
+        _build.set_launches(_build.RIGID, saved[2])
