@@ -46,7 +46,7 @@ class Outcome:
     port: dict                  # sampled answers of the program
     items: dict                 # their crops ({'frame', 'box', 'K'})
     frames: list                # host frames the items index
-    weights: tuple              # the seeded (hrnet, lifter, LS) states, on
+    weights: tuple              # the seeded (keypoint, lifter, LS) states, on
     #                             the host: what the reference is handed
     trace: dict = dataclasses.field(default_factory=dict)
     setup_s: float = 0.0
@@ -62,7 +62,7 @@ def program_config(ctx: Context) -> dict:
 
 
 def prepare(ctx: Context):
-    """(workload, hrnet_state, lifter_state, ls_stats): the traffic's
+    """(workload, keypoint_state, lifter_state, ls_stats): the traffic's
     frames and boxes and the seeded, calibrated weights, made on the run's
     device."""
     wl = traffic_mod.make(ctx.traffic, ctx.seed, ctx.device)
@@ -82,6 +82,11 @@ def build_model(ctx: Context, hs, lst, ls_stats):
     from egonet_tpu_torch.models.egonet import EgoNet
     cfg = program_config(ctx)
     model = EgoNet(cfg, dtype=config_dtype(cfg), device=ctx.device)
+    if ctx.control and getattr(model.hrnet, "act_quant", None) != "int8":
+        # a control at full precision would read as the program does
+        raise SystemExit(f"--control: the keypoint model "
+                         f"{type(model.hrnet).__name__} did not take "
+                         "act_quant 'int8'")
     model.prepare_inference(stencil="0")
     model.load_state(hrnet_state=hs, lifter_state=lst, ls_stats=ls_stats)
     kept = ({k: v.cpu() for k, v in hs.items()},

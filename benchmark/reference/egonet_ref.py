@@ -2,7 +2,9 @@
 published description (Li et al., "Exploring intermediate representation
 for monocular vehicle pose estimation", CVPR 2021, and its code
 github.com/Nicholasli1995/EgoNet), against which the benchmark judges the
-program's outputs.  It imports torch and numpy only.
+program's outputs.  It and the keypoint families beside it import torch,
+numpy, the standard library and one another (and ``benchmark/work.py``'s
+FLOP walker), nothing of the program.
 
 Stages, per detection box:
 
@@ -11,10 +13,9 @@ Stages, per detection box:
    uniform scale (patch pixel p -> source pixel c + (p - out/2) * k);
 2. bilinear sampling of the frame (zero outside it), rounded to whole
    levels (half to even), scaled to [0, 1] and normalised by mean / std;
-3. HRNet (Sun et al. 2019) with EgoNet's 'coordinates' head: a 1x1 conv
-   to K heatmaps, two linspace(0, 1) coordinate channels, four stride-2
-   BasicBlocks with a 1x1 downsample each, a valid conv to 2K numbers and
-   a sigmoid giving each joint's (x, y) in [0, 1] of the crop;
+3. the keypoint model of the configuration's family, found by
+   ``heatmapModel.name`` (:func:`keypoint_model`): the crops' [N, K, 2]
+   joint coordinates in [0, 1] of the crop;
 4. the inverse of step 1's map, back to screen pixels;
 5. the FC lifter (Martinez et al. 2017): normalise, Linear-BN-ReLU, N
    residual blocks of two Linear-BN-ReLU, Linear, un-normalise -> 32
@@ -26,18 +27,21 @@ Stages, per detection box:
 Batch norm runs with its running statistics (inference).  Everything is
 fp32 (TF32 off) but the rigid solve, which is float64.
 
-The architecture is walked once by :func:`_hrnet` through an object that
-either computes (``_Compute``) or lists each parameter's name and shape
-(``_Spec``), so the parameter list and the forward pass cannot disagree.
-``forward(..., calibrate=True)`` sets every batch norm's running mean
-to its input's batch mean per channel, and its running variance to the
-batch variance averaged over the layer's channels (the benchmark's seeded weights use it
-to keep each layer's output at a known scale).
+A network is walked once, by a family's walk or :func:`_lifter`,
+through an object that either computes (``_Compute``) or lists each
+parameter's name and shape (``_Spec``), so the parameter list and the
+forward pass cannot disagree; a family that needs another primitive
+subclasses them.  ``calibrate=True`` sets every batch norm's running
+mean to 0 and its running variance to its input's mean square over the
+whole layer (the benchmark's seeded weights use it to keep each layer's
+output at a known scale).
 """
 
 from __future__ import annotations
 
+import importlib
 import math
+import os
 
 import numpy as np
 import torch
@@ -51,6 +55,9 @@ BN_EPS = 1e-5
 EDGE_PARENT = (0, 2, 4, 6, 0, 1, 2, 3, 0, 1, 4, 5)
 EDGE_CHILD = (1, 3, 5, 7, 4, 5, 6, 7, 2, 3, 6, 7)
 INTERP = (0.332, 0.667)
+# heatmapModel.name -> family, as the port's models/factory.py names them
+KEYPOINT_ALIASES = {"pose_hrnet": "hrnet", "pose_resnet": "resnet",
+                    "posenet_tpu": "tpu_native"}
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +125,7 @@ def normalize_crops(samples, mean, std):
 
 
 # ---------------------------------------------------------------------------
-# the HRNet, walked once for its parameters and its forward pass
+# the walkers: a network walked once for its parameters and its forward pass
 
 class _Spec:
     """Lists parameter names and shapes; activations are shapes (N, C, H,
@@ -162,8 +169,8 @@ class _Spec:
 
 class _Compute:
     """Runs the walk on fp32 NCHW tensors with parameters from ``state``;
-    with ``calibrate`` each batch norm first takes its input's batch mean
-    and (biased) variance as its running statistics."""
+    with ``calibrate`` each batch norm first takes 0 as its running mean
+    and its input's mean square as its running variance."""
 
     def __init__(self, state, calibrate=False):
         self.p = state
@@ -178,7 +185,6 @@ class _Compute:
     def bn(self, name, x):
         mean, var = self.p[name + ".running_mean"], self.p[name + ".running_var"]
         if self.calibrate:
-            dims = [d for d in range(x.dim()) if d != 1]
             mean.zero_()
             var.fill_(float((x * x).mean()))
         return F.batch_norm(x, mean, var, self.p[name + ".weight"],
@@ -202,103 +208,6 @@ class _Compute:
 
     def sigmoid_coords(self, x):
         return torch.sigmoid(x).reshape(x.shape[0], -1, 2)
-
-
-def _basic(o, name, x, planes, stride=1, downsample=False):
-    y = o.relu(o.bn(name + ".bn1", o.conv(name + ".conv1", x, planes, 3,
-                                          stride)))
-    y = o.bn(name + ".bn2", o.conv(name + ".conv2", y, planes, 3))
-    r = x
-    if downsample:
-        r = o.bn(name + ".downsample.1",
-                 o.conv(name + ".downsample.0", x, planes, 1, stride, 0))
-    return o.relu(o.add(y, r))
-
-
-def _bottleneck(o, name, x, planes, downsample=False):
-    y = o.relu(o.bn(name + ".bn1", o.conv(name + ".conv1", x, planes, 1,
-                                          1, 0)))
-    y = o.relu(o.bn(name + ".bn2", o.conv(name + ".conv2", y, planes, 3)))
-    y = o.bn(name + ".bn3", o.conv(name + ".conv3", y, planes * 4, 1, 1, 0))
-    r = x
-    if downsample:
-        r = o.bn(name + ".downsample.1",
-                 o.conv(name + ".downsample.0", x, planes * 4, 1, 1, 0))
-    return o.relu(o.add(y, r))
-
-
-def _conv_bn(o, name, x, cout, k, stride=1, pad=None):
-    return o.bn(name + ".1", o.conv(name + ".0", x, cout, k, stride, pad))
-
-
-def _hrnet(o, x, hm):
-    """HRNet + the coordinates head on ``x``; ``hm`` is the config's
-    ``heatmapModel``.  Returns [N, K, 2] coordinates in [0, 1]."""
-    x = o.relu(o.bn("bn1", o.conv("conv1", x, 64, 3, 2)))
-    x = o.relu(o.bn("bn2", o.conv("conv2", x, 64, 3, 2)))
-    for b in range(4):
-        x = _bottleneck(o, f"layer1.{b}", x, 64, downsample=b == 0)
-    ys, pre = [x], (256,)
-    extra = hm["extra"]
-    for s in (2, 3, 4):
-        st = extra[f"stage{s}"]
-        assert st["block"] == "basic"
-        widths = tuple(st["num_channels"])
-        # transition: a width change, or a new branch, reads the LAST
-        # previous branch (stride-2 3x3 conv chains for new branches)
-        xs = []
-        for i, c in enumerate(widths):
-            tname = f"transition{s - 1}.{i}"
-            if i < len(pre):
-                xs.append(ys[i] if pre[i] == c else o.relu(
-                    _conv_bn(o, tname, ys[-1], c, 3)))
-            else:
-                y, cin = ys[-1], pre[-1]
-                for j in range(i + 1 - len(pre)):
-                    cout = c if j == i - len(pre) else cin
-                    y = o.relu(_conv_bn(o, f"{tname}.{j}", y, cout, 3, 2))
-                    cin = cout
-                xs.append(y)
-        for m in range(st["num_modules"]):
-            mname = f"stage{s}.{m}"
-            nb = st["num_branches"]
-            for i in range(nb):
-                for b in range(st["num_blocks"][i]):
-                    xs[i] = _basic(o, f"{mname}.branches.{i}.{b}", xs[i],
-                                   widths[i])
-            n_out = nb if (s != 4 or m < st["num_modules"] - 1) else 1
-            fused = []
-            for i in range(n_out):
-                acc = xs[i]
-                for j in range(nb):
-                    fname = f"{mname}.fuse_layers.{i}.{j}"
-                    if j > i:
-                        t = o.upsample(_conv_bn(o, fname, xs[j], widths[i],
-                                                1, 1, 0), 2 ** (j - i))
-                    elif j < i:
-                        t = xs[j]
-                        for k in range(i - j):
-                            last = k == i - j - 1
-                            t = _conv_bn(o, f"{fname}.{k}", t,
-                                         widths[i] if last else widths[j],
-                                         3, 2)
-                            if not last:
-                                t = o.relu(t)
-                    else:
-                        continue
-                    acc = o.add(acc, t)
-                fused.append(o.relu(acc))
-            xs = fused
-        ys, pre = xs, widths
-    k = int(hm["num_joints"])
-    map_w, map_h = hm["heatmap_size"]
-    h = o.conv("head1.0", ys[0], k, 1, 1, 0, bias=True)
-    h = o.cat_coords(h)
-    for b in range(4):
-        h = _basic(o, f"head2.{b}", h, 2 * k, 2, downsample=True)
-    h = o.conv("head2.4", h, 2 * k, (map_h // 16, map_w // 16), 1, 0,
-               bias=True)
-    return o.sigmoid_coords(h)
 
 
 def _lifter(o, x, fc):
@@ -326,23 +235,31 @@ class _ComputeLinear(_Compute):
         return F.linear(x, self.p[name + ".weight"], self.p[name + ".bias"])
 
 
-def hrnet_shapes(cfg) -> dict:
-    """{state_dict key: shape} of the keypoint model of config ``cfg``."""
-    hm = cfg["heatmapModel"]
-    w, h = hm["input_size"]
-    spec = _Spec()
-    _hrnet(spec, (1, 3, h, w), hm)
-    return spec.shapes
+def keypoint_model(cfg):
+    """The module ``benchmark/reference/keypoint_<name>.py`` of the keypoint
+    family that ``cfg['heatmapModel']['name']`` names (default 'hrnet'; the
+    port's aliases).  It holds ``shapes(cfg)``, ``forward(state, x, cfg,
+    calibrate=False)``, ``fit_head(state, x, cfg, params)``, ``flops(cfg)``
+    and ``shrink(cfg)``."""
+    name = str(cfg["heatmapModel"].get("name", "hrnet")).lower()
+    name = KEYPOINT_ALIASES.get(name, name)
+    module = f"{__package__}.keypoint_{name}"
+    if name.isidentifier():
+        try:
+            return importlib.import_module(module)
+        except ModuleNotFoundError as e:
+            if e.name != module:
+                raise
+    looked = [os.path.join(d, f"keypoint_{name}.py")
+              for d in importlib.import_module(__package__).__path__]
+    raise FileNotFoundError(f"heatmapModel.name {name!r}: no keypoint "
+                            f"family; looked for {', '.join(looked)}")
 
 
 def lifter_shapes(cfg) -> dict:
     spec = _SpecLinear()
     _lifter(spec, (1, int(cfg["FCModel"]["input_size"])), cfg["FCModel"])
     return spec.shapes
-
-
-def hrnet_forward(state, x, cfg, calibrate=False):
-    return _hrnet(_Compute(state, calibrate), x, cfg["heatmapModel"])
 
 
 def lifter_forward(state, x, cfg, calibrate=False):
@@ -399,7 +316,7 @@ def wrap(a):
 # ---------------------------------------------------------------------------
 # the whole pipeline
 
-def run(frames, items, hrnet_state, lifter_state, ls_stats, cfg,
+def run(frames, items, keypoint_state, lifter_state, ls_stats, cfg,
         block: int = 64) -> dict:
     """Reference outputs for ``items``: a dict of arrays over crops with
     'frame' [N] (index into ``frames``, uint8 [B, H, W, 3] on the
@@ -413,15 +330,16 @@ def run(frames, items, hrnet_state, lifter_state, ls_stats, cfg,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        return _run(frames, items, hrnet_state, lifter_state, ls_stats, cfg,
-                    block, dev)
+        return _run(frames, items, keypoint_state, lifter_state, ls_stats,
+                    cfg, block, dev)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
 
 
-def _run(frames, items, hrnet_state, lifter_state, ls_stats, cfg, block,
+def _run(frames, items, keypoint_state, lifter_state, ls_stats, cfg, block,
          dev):
+    keypoints = keypoint_model(cfg)
     hm = cfg["heatmapModel"]
     in_w, in_h = hm["input_size"]
     pth = cfg["dataset"]["pth_transform"]
@@ -436,7 +354,7 @@ def _run(frames, items, hrnet_state, lifter_state, ls_stats, cfg, block,
             x = normalize_crops(sample_crops(frames, items["frame"][sl], inv,
                                              (in_h, in_w)),
                                 pth["mean"], pth["std"])
-            coords = hrnet_forward(hrnet_state, x, cfg).double()
+            coords = keypoints.forward(keypoint_state, x, cfg).double()
             inv_t = torch.as_tensor(inv, device=dev)
             local = coords * torch.tensor([in_w, in_h], dtype=torch.float64,
                                           device=dev)

@@ -5,11 +5,14 @@
 
 from the root of a checkout, on a machine with the cards the cell asks
 for.  Everything is found by name from ``BENCHMARK.json``: the cell in
-``workloads``, its configuration in ``benchmark/configs/<config>.json``,
-its traffic mix in ``benchmark/traffic/<traffic>.json`` (whose ``kind``
-names the driver, ``benchmark/<kind>.py``), and each per-layer metric's
-reader in ``benchmark/metrics/<name>.py``.  A new cell, configuration,
-mix or metric is new files and new entries there.
+``workloads``, its configuration in ``benchmark/configs/<config>.json``
+(whose ``heatmapModel.name`` names the keypoint family: its reference,
+seeded weights, FLOPs and CPU cut in
+``benchmark/reference/keypoint_<name>.py``), its traffic mix in
+``benchmark/traffic/<traffic>.json`` (whose ``kind`` names the driver,
+``benchmark/<kind>.py``), and each per-layer metric's reader in
+``benchmark/metrics/<name>.py``.  A new cell, configuration, keypoint
+family, mix or metric is new files and new entries there.
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics,

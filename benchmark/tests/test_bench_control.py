@@ -89,6 +89,21 @@ def test_one_block_off_is_not(tiny_root, cell, monkeypatch):
     assert hit and not line["correct"], line["compared"]
 
 
+def test_control_needs_the_int8_path(tiny_root, monkeypatch):
+    """A keypoint model that does not take ``act_quant: int8`` stops a
+    control run, which would otherwise read at full precision."""
+    from egonet_tpu_torch.models import factory
+    build = factory._REGISTRY["hrnet"]
+
+    def ignoring(cfgs, dtype=torch.float32):
+        net = build(cfgs, dtype=dtype)
+        net.act_quant = "none"
+        return net
+    monkeypatch.setitem(factory._REGISTRY, "hrnet", ignoring)
+    with pytest.raises(SystemExit, match="did not take act_quant 'int8'"):
+        _run(tiny_root, "w32_ped_offline_batch128", control=True)
+
+
 def test_needs_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert run.main(["--workload", "w48_car_offline_batch64", "--seed", "1",

@@ -1,7 +1,7 @@
 """What the benchmark runs imports neither JAX nor the JAX package
 (``egonet_tpu``; ``egonet_tpu_torch`` is the port and passes: top-level
-names are compared whole), and the plain reference imports nothing of
-the port."""
+names are compared whole), and the plain reference and its keypoint
+families import nothing of the port."""
 
 import ast
 import os
@@ -49,11 +49,19 @@ def _imports(path):
 
 
 def test_reference_imports_torch_and_numpy_only():
+    """The reference and its keypoint families import torch, numpy, the
+    standard library's lookup and one another, and the FLOP walker of
+    ``work.py``, which imports no more."""
     ref = os.path.join(run.ROOT, "benchmark", "reference")
-    for name in os.listdir(ref):
-        if name.endswith(".py"):
-            tops = {m.split(".")[0] for m in _imports(os.path.join(ref, name))}
-            assert tops <= {"__future__", "math", "numpy", "torch"}, name
+    paths = [os.path.join(ref, name) for name in os.listdir(ref)
+             if name.endswith(".py")]
+    paths.append(os.path.join(run.ROOT, "benchmark", "work.py"))
+    for path in paths:
+        for m in _imports(path):
+            assert (m.split(".")[0] in {"__future__", "importlib", "math",
+                                        "os", "numpy", "torch"}
+                    or m in ("benchmark.reference", "benchmark.work")
+                    or m.startswith("benchmark.reference.")), (path, m)
 
 
 def test_no_benchmark_file_imports_jax():

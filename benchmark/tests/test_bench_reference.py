@@ -50,8 +50,9 @@ def test_stages_match_the_port():
     model.load_state(hs, lst, ls_stats)
     with torch.no_grad():
         _maps, coords = model.hrnet(x)
-        torch.testing.assert_close(ref.hrnet_forward(hs, x, cfg), coords,
-                                   rtol=0, atol=1e-5)
+        torch.testing.assert_close(
+            ref.keypoint_model(cfg).forward(hs, x, cfg), coords, rtol=0,
+            atol=1e-5)
         z = torch.randn(5, cfg["FCModel"]["input_size"])
         torch.testing.assert_close(ref.lifter_forward(lst, z, cfg),
                                    model.lifter(z), rtol=1e-5, atol=1e-5)

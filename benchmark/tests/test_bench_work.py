@@ -1,6 +1,6 @@
 """The benchmark's FLOP arithmetic, from the configurations' shapes,
 equals torch's FLOP counter over the port's plain forward (the fused
-blocks on their plain version) at both configurations' published
+blocks on their plain version) at every configuration's published
 widths."""
 
 import json
@@ -12,13 +12,13 @@ import torch
 from benchmark import run, work
 
 
-@pytest.mark.parametrize("name", ["egonet_w48_car", "egonet_w32_ped"])
-def test_flops_equal_the_counter(name):
+@pytest.mark.parametrize("conf", run.load_spec()["configs"],
+                         ids=lambda conf: conf["name"])
+def test_flops_equal_the_counter(conf):
     from egonet_tpu_torch.models.factory import build_heatmap_model
     from egonet_tpu_torch.models.fc_lifter import build_fc_model
     from egonet_tpu_torch.utils.summary import count_flops
-    with open(os.path.join(run.ROOT, "benchmark", "configs",
-                           name + ".json")) as f:
+    with open(os.path.join(run.ROOT, conf["file"])) as f:
         cfg = json.load(f)
     got = work.crop_work(cfg)
     hrnet = build_heatmap_model(cfg).eval()

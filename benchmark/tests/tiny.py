@@ -1,7 +1,8 @@
 """A checkout-shaped directory holding the benchmark's cells at a size a
 CPU test run can hold: the same ``BENCHMARK.json``, each configuration's
-HRNet cut to widths 8/16/32/64, one block a branch and one module a
-stage at 64x64 crops (16x16 heatmaps), each mix cut to a few frames."""
+keypoint model cut by its family's ``shrink`` (HRNet: widths 8/16/32/64,
+one block a branch and one module a stage at 64x64 crops, 16x16
+heatmaps), a 64-wide lifter, each mix cut to a few frames."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import json
 import os
 
 from benchmark import run
+from benchmark.reference import egonet_ref as ref
 
 # limits of the comparison at this size (the chip's are in the
 # configuration files), from CPU readings over seeds 1-6 of the three
@@ -20,14 +22,7 @@ TINY_LIMITS = {"missing": 0, "kpts_2d": 0.15, "kpts_3d_m": 0.06,
 
 
 def shrink_config(cfg: dict) -> dict:
-    extra = cfg["heatmapModel"]["extra"]
-    chans = {"stage2": [8, 16], "stage3": [8, 16, 32],
-             "stage4": [8, 16, 32, 64]}
-    for s, c in chans.items():
-        extra[s].update({"num_channels": c, "num_blocks": [1] * len(c),
-                         "num_modules": 1})
-    cfg["heatmapModel"]["input_size"] = [64, 64]
-    cfg["heatmapModel"]["heatmap_size"] = [16, 16]
+    ref.keypoint_model(cfg).shrink(cfg)
     cfg["FCModel"]["num_neurons"] = 64
     cfg["limits"] = dict(TINY_LIMITS)
     return cfg

@@ -6,16 +6,19 @@ seeded by ``--seed``, in two calls (one normal, one uniform draw, sliced
 per tensor).  Conv and linear weights are LeCun normal; batch-norm scales
 are uniform in ``bn_gamma`` (``bn_gamma_residual`` for the norm that
 closes a residual branch), shifts and biases normal with ``bias_std``.
-The running statistics are then set from a calibration batch of the
-cell's own crops through the reference (``calibrate=True``), so each
-layer's output has a known scale and the trunk's work reaches the
-keypoints: with raw random weights the activations grow through the 104
-residual blocks and the head's sigmoids saturate.  The head's last conv
-is rescaled per channel so its logits have standard deviation
-``logit_std``, and the lifter's input statistics come from the same
-batch.  The lifter's output statistics decode its outputs into a cuboid
-of the configuration's dimensions (``cuboid_lhw``) at a seeded yaw, with
-``std_out`` metres of spread, so the rigid solve is well conditioned.
+The keypoint model is the configuration's family
+(``reference/keypoint_<name>.py``, by ``heatmapModel.name``): its
+``shapes`` give the tensors to draw, and its ``fit_head`` sets the
+running statistics from a calibration batch of the cell's own crops
+through the reference (``calibrate=True``), so each layer's output has a
+known scale and the trunk's work reaches the keypoints (with raw random
+weights the activations grow through HRNet's 104 residual blocks and the
+head's sigmoids saturate), then rescales the head's last layer so its
+logits have standard deviation ``logit_std``.  The lifter's input
+statistics come from the same batch.  The lifter's output statistics
+decode its outputs into a cuboid of the configuration's dimensions
+(``cuboid_lhw``) at a seeded yaw, with ``std_out`` metres of spread, so
+the rigid solve is well conditioned.
 """
 
 from __future__ import annotations
@@ -86,14 +89,15 @@ def cuboid_points(l, h, w, yaw):
 
 
 def make(cfg: dict, seed: int, device, frames, items) -> tuple:
-    """(hrnet_state, lifter_state, ls_stats) for configuration ``cfg``
+    """(keypoint_state, lifter_state, ls_stats) for configuration ``cfg``
     (its ``weights`` block holds the draw's parameters), calibrated on the
     crops ``items`` ({'frame', 'box'}) of ``frames`` (uint8 [B, H, W, 3]
     on ``device``)."""
     params = cfg["weights"]
+    keypoints = ref.keypoint_model(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    hstate = _draw(ref.hrnet_shapes(cfg), gen, device, params)
+    kstate = _draw(keypoints.shapes(cfg), gen, device, params)
     lstate = _draw(ref.lifter_shapes(cfg), gen, device, params)
     yaw = float(torch.rand(1, generator=gen, device=device)) * 2 * math.pi \
         - math.pi
@@ -110,18 +114,8 @@ def make(cfg: dict, seed: int, device, frames, items) -> tuple:
             x = ref.normalize_crops(
                 ref.sample_crops(frames, items["frame"], inv, (in_h, in_w)),
                 pth["mean"], pth["std"])
-            coords = ref.hrnet_forward(hstate, x, cfg, calibrate=True)
-            # the head's logits, standardised per channel
-            p = coords.double().clamp(1e-12, 1 - 1e-12).reshape(len(x), -1)
-            logits = torch.log(p / (1 - p))
-            centred = logits - logits.mean(0)
-            gain = float(params["logit_std"]) / centred.std().clamp_min(1e-6)
-            gain = gain.expand(logits.shape[1])
-            w, b = hstate["head2.4.weight"], hstate["head2.4.bias"]
-            hstate["head2.4.bias"] = ((b - logits.mean(0).float())
-                                      * gain.float())
-            hstate["head2.4.weight"] = w * gain.float()[:, None, None, None]
-            coords = ref.hrnet_forward(hstate, x, cfg).double()
+            keypoints.fit_head(kstate, x, cfg, params)
+            coords = keypoints.forward(kstate, x, cfg).double()
             inv_t = torch.as_tensor(inv, device=device)
             local = coords * torch.tensor([in_w, in_h], dtype=torch.float64,
                                           device=device)
@@ -143,6 +137,6 @@ def make(cfg: dict, seed: int, device, frames, items) -> tuple:
             np.float32),
         "std_out": np.full((1, out), float(params["std_out"]), np.float32),
     }
-    hstate = {k: v.contiguous() for k, v in hstate.items()}
+    kstate = {k: v.contiguous() for k, v in kstate.items()}
     lstate = {k: v.contiguous() for k, v in lstate.items()}
-    return hstate, lstate, ls_stats
+    return kstate, lstate, ls_stats

@@ -3,8 +3,10 @@ and the chips' published peaks.
 
 FLOPs count 2 per multiply-add of every convolution and dense layer (the
 convention of ``torch.utils.flop_counter``), walked over the reference's
-architecture (``reference/egonet_ref.py``), so they follow the model and
-not the kernels that run it.  The crop warp counts as bilinear sampling:
+architecture (the keypoint family's ``flops``, found by
+``heatmapModel.name`` in ``reference/keypoint_<name>.py``, and
+``reference/egonet_ref.py``'s lifter), so they follow the model and not
+the kernels that run it.  The crop warp counts as bilinear sampling:
 4 taps of one multiply-add each per output value and channel.  The rigid
 solve and the elementwise layers (batch norm, ReLU, sums) are left out:
 together they are under 0.1% of a crop's FLOPs.
@@ -29,7 +31,8 @@ PEAKS = {
 
 
 class _FlopSpec(ref._SpecLinear):
-    """The reference's walk, adding up conv and dense FLOPs."""
+    """The reference's walk, adding up conv and dense FLOPs (a keypoint
+    family with another primitive subclasses it)."""
 
     def __init__(self):
         super().__init__()
@@ -54,10 +57,9 @@ def crop_work(cfg: dict) -> dict:
     outputs)."""
     hm = cfg["heatmapModel"]
     w, h = hm["input_size"]
-    spec = _FlopSpec()
-    ref._hrnet(spec, (1, 3, h, w), hm)
-    kp_flops = spec.flops
-    weights = sum(math.prod(s) for k, s in spec.shapes.items()
+    keypoints = ref.keypoint_model(cfg)
+    kp_flops = keypoints.flops(cfg)
+    weights = sum(math.prod(s) for k, s in keypoints.shapes(cfg).items()
                   if k.endswith(".weight") and len(s) == 4)
     lift = _FlopSpec()
     ref._lifter(lift, (1, int(cfg["FCModel"]["input_size"])),
