@@ -13,6 +13,7 @@ window: decoding is not what these cells measure.
 
 from __future__ import annotations
 
+import gc
 import sys
 import threading
 import time
@@ -89,6 +90,12 @@ def run(ctx: harness.Context) -> harness.Outcome:
         recs = model.post_process(next(stream))
         g = count[0] % len(annots)
         count[0] += 1
+        # what is alive now, the records kept for the check among it, goes
+        # out of the cyclic collector's view: a full collection would
+        # otherwise walk every record kept so far, with the interpreter
+        # lock held, a pause that grows through the window and that a
+        # user, who writes the label lines and drops them, never pays
+        gc.freeze()
         return g, recs
 
     for _ in annots:                      # one whole cycle: set-up
@@ -114,12 +121,17 @@ def run(ctx: harness.Context) -> harness.Outcome:
             while time.monotonic() < t1 + float(tr["trace_seconds"]):
                 take()
     stop.set()
-    stream.close()
-    # the producer thread may be inside one more dispatch: wait for it, so
-    # that nothing of the program runs once the driver returns
+    # the feed ends at its next item: take what was dispatched before that
+    # until the stream ends, so that the producer thread ends by itself and
+    # not once the collector, which sees nothing frozen, finds the stream
+    for _ in stream:
+        pass
+    # wait for the producer thread, so that nothing of the program runs
+    # once the driver returns
     for t in set(threading.enumerate()) - threads:
         t.join(timeout=120.0)
     ctx.sync()
+    gc.unfreeze()
 
     # every answer of the window: one per box, finite, one label line each
     rows, missing = [], 0

@@ -54,6 +54,21 @@ def cache_dirs(root: str = ROOT) -> None:
         os.environ[var] = os.path.join(root, ".bench_cache", sub)
 
 
+# The run's process, set before torch loads: one intra-op thread, so that
+# no pool of spinning threads competes with the facade's two host threads
+# for the machine's shared cores; and CUDA's launch queues at four times
+# their size (about 4,250 launches before a launch blocks, against about
+# 1,250), so that the work the facade dispatches ahead of the card
+# (``stream_depth``) fits in the queue and a pause of the host is covered
+# by work already queued, not by an idle card.
+PROCESS_ENV = (("OMP_NUM_THREADS", "1"), ("CUDA_SCALE_LAUNCH_QUEUES", "4x"))
+
+
+def process_env() -> None:
+    for var, value in PROCESS_ENV:
+        os.environ[var] = value
+
+
 def load_spec(root: str = ROOT) -> dict:
     with open(os.path.join(root, "BENCHMARK.json")) as f:
         return json.load(f)
@@ -196,6 +211,7 @@ def main(argv=None) -> int:
     ap.add_argument("--control", action="store_true")
     args = ap.parse_args(argv)
     cache_dirs()
+    process_env()
     res = resolve(load_spec(), args.workload)
     import torch
     chips = int(res["cell"]["chips"])

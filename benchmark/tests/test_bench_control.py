@@ -10,8 +10,13 @@ import pytest
 import torch
 
 from benchmark import run
+from benchmark.reference import egonet_ref, keypoint_hrnet
 
-CELLS = ("w48_car_offline_batch64", "w32_ped_offline_batch128")
+SPEC = run.load_spec()
+CELLS = [c["name"] for c in SPEC["workloads"]]
+# the cells whose keypoint model is HRNet, whose BasicBlock a test breaks
+HRNET_CELLS = [c for c in CELLS if egonet_ref.keypoint_model(
+    run.resolve(SPEC, c)["cfg"]) is keypoint_hrnet]
 
 
 def _run(root, cell, seed=11, **kw):
@@ -71,7 +76,7 @@ def test_a_missing_answer_is_not(tiny_root, monkeypatch):
     assert not line["correct"] and line["compared"]["missing"]["value"] > 0
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", HRNET_CELLS)
 def test_one_block_off_is_not(tiny_root, cell, monkeypatch):
     """One BasicBlock of the trunk (the first of the second branch's
     width to run) returns its output 25% too large: a kernel-level fault

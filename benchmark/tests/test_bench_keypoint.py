@@ -1,10 +1,10 @@
 """The keypoint families, found by ``heatmapModel.name``
 (``egonet_ref.keypoint_model``): the aliases and the message for an
-unknown name; a stand-in family that is a file alone
-(``keypoint_standin.py``) carried through the seeded weights, the work
-count, the reference and the tiny cut; and HRNet's seeded weights and
-reference outputs held to digests taken before the family modules were
-split out."""
+unknown name or an alias of a family without a file; a stand-in family
+that is a file alone (``keypoint_standin.py``) carried through the
+seeded weights, the work count, the reference and the tiny cut; and
+HRNet's seeded weights and reference outputs held to digests taken
+before the family modules were split out."""
 
 from __future__ import annotations
 
@@ -51,8 +51,13 @@ def test_names_and_aliases(name):
         "benchmark.reference.keypoint_hrnet"
 
 
-@pytest.mark.parametrize("name", ["nosuch", "pose_resnet", "../hrnet"])
-def test_an_unknown_name_names_the_file(name):
+@pytest.mark.parametrize("name", ["nosuch", "made_up_alias", "../hrnet"])
+def test_an_unknown_name_names_the_file(name, monkeypatch):
+    """An unknown name, an alias of a family that has no file, and a name
+    that is no module's: none is a name the port's factory accepts, so a
+    family's file added later leaves every case standing."""
+    monkeypatch.setitem(ref.KEYPOINT_ALIASES, "made_up_alias",
+                        "made_up_family")
     file = "keypoint_" + ref.KEYPOINT_ALIASES.get(name, name) + ".py"
     with pytest.raises(FileNotFoundError) as err:
         ref.keypoint_model({"heatmapModel": {"name": name}})

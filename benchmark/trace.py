@@ -14,7 +14,11 @@ A dispatch is one ``bench.dispatch:<crops>`` span (the harness's own,
 around ``EgoNet.dispatch_annot_dict``) that lies wholly in the trace and
 holds the facade's ``host_prep`` and ``d2h`` spans.  For each, the record
 keeps its real crops, the ``host_prep`` span's host ms, the device events
-it launched, and the device ms of those launched inside ``backbone``.
+it launched, the device ms of those launched inside ``backbone``, and
+``span_ms``: the device ms of every launch of the dispatch by the facade
+span open on its thread when it was launched (any span but the
+harness's own ``bench.*``; ``"none"`` outside them), so that a reader of
+a span the facade gains needs no edit here.
 """
 
 from __future__ import annotations
@@ -100,8 +104,8 @@ def _merge(intervals):
 
 def reduce(events) -> dict:
     """{'busy_s', 'window_s', 'dispatches': [{'crops', 'host_prep_ms',
-    'launches', 'backbone_ms'}], 'device_ops': [[name, s]] (top 10),
-    'idle_gaps': [[host span open, s]] (top 10)}."""
+    'launches', 'backbone_ms', 'span_ms': {span: ms}}], 'device_ops':
+    [[name, s]] (top 10), 'idle_gaps': [[host span open, s]] (top 10)}."""
     events = [e for e in events if e.get("ph") == "X" and "dur" in e]
     dev = [e for e in events if e.get("cat") in DEVICE_CATS]
     spans = [e for e in events if e.get("cat") == "user_annotation"]
@@ -155,19 +159,21 @@ def reduce(events) -> dict:
             prep = [e for e in inner if e["name"] == "host_prep"]
             if not prep or not any(e["name"] == "d2h" for e in inner):
                 continue
-            bone = _Spans([e for e in inner if e["name"] == "backbone"])
+            facade = _Spans([e for e in inner
+                             if not e["name"].startswith("bench.")])
             mine = calls.get(tid, [])
             i = bisect.bisect_left(mine, (a, -1))
             j = bisect.bisect_right(mine, (b, float("inf")))
-            n, bone_us = 0, 0.0
+            span_us = collections.defaultdict(float)
             for ts, dur in mine[i:j]:
-                n += 1
-                if bone.at(ts) is not None:
-                    bone_us += dur
+                span = facade.at(ts)
+                span_us["none" if span is None else span["name"]] += dur
             dispatches.append({
                 "crops": int(d["name"][len(DISPATCH):]),
                 "host_prep_ms": sum(e["dur"] for e in prep) / 1e3,
-                "launches": n, "backbone_ms": bone_us / 1e3})
+                "launches": j - i,
+                "backbone_ms": span_us.get("backbone", 0.0) / 1e3,
+                "span_ms": {k: v / 1e3 for k, v in span_us.items()}})
     return {"busy_s": busy_us / 1e6, "window_s": (t1 - t0) / 1e6,
             "dispatches": dispatches,
             "device_ops": [[k, v] for k, v in by_name.most_common(10)],
