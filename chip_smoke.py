@@ -785,13 +785,178 @@ def rigid_phase(torch, np, card):
     return row
 
 
+# egonet::bn_act: the CUDA kernel against the CPU kernel at these NHWC
+# shapes (layer1, the stem's width, head2's C = 66, W48's stage 4, an odd
+# width), then at layer1's shape of a full bucket (the grid strides over it
+# several times) against the CPU kernel and the unfused ops, and timed;
+# launches a forward of W48 or W32 in bf16 inference (the batch norms
+# outside the fused blocks)
+BN_ACT_SHAPES = ((8, 64, 64, 256), (3, 64, 64, 64), (5, 8, 8, 66),
+                 (7, 8, 8, 384), (2, 3, 5, 35))
+BN_ACT_TIMED, BN_ACT_TIMED_CALLS = (512, 64, 64, 256), 50
+# fuse_merge's layer1 group at a full bucket: conv1's 64 channels beside
+# the downsample's 256, the downsample's view read in place (and, as a
+# residual, the view of the first 256)
+BN_ACT_SLICE = (64, 256)
+# most of the full bucket's elements that may differ from the unfused ops
+# (the CPU tests' widths read at most 0.011%)
+BN_ACT_MAX_DIFFER = 0.02
+BN_ACT_PER_FORWARD = 96
+HBM_TBPS = 3.35
+
+
+def _bn_act_bound(torch, x, scale, shift, t, residual):
+    """How far bn_act may lie from the unfused ops on NHWC operands (the
+    CPU tests' bound): one bf16 step of the batch norm's value t, two fp32
+    steps of its terms x * scale and shift (where they cancel), and with a
+    residual one bf16 step of the sum."""
+    def step(v):
+        v = v.float().abs()
+        e = torch.floor(torch.log2(torch.where(v > 0, v, torch.ones_like(v))))
+        return torch.where(v > 0, torch.exp2(e - 7), torch.zeros_like(v))
+
+    bound = step(t) + ((x.float() * scale).abs() + shift.abs()) * 2.0 ** -22
+    if residual is not None:
+        bound += step(t.float() + residual.float())
+    return bound
+
+
+def bn_act_phase(torch, np, card):
+    """The batch-norm epilogue's kernel (``egonet::bn_act``): at each shape
+    of BN_ACT_SHAPES, with and without a residual and a relu, the CUDA
+    kernel bit for bit the CPU kernel (csrc/bn_act.cuh's routine), one
+    launch a call, and once with x misaligned (the 2-byte path).  At
+    BN_ACT_TIMED, with and without a residual: bit for bit the CPU kernel,
+    on the whole tensor and on a BN_ACT_SLICE channel view read in place,
+    and within :func:`_bn_act_bound` of the unfused ops it replaced (cast
+    to fp32, batch norm, cast back, add, relu) with at most
+    BN_ACT_MAX_DIFFER of the elements differing; then, after as many
+    untimed, BN_ACT_TIMED_CALLS back-to-back calls timed with CUDA events,
+    its TB/s of bytes read and
+    written against HBM_TBPS, beside the unfused ops; ptxas's registers and
+    spills from the build log."""
+    import torch.nn.functional as F
+    from egonet_tpu_torch.io.weights import bn_affine_tensors
+    from egonet_tpu_torch.ops import _build
+    from egonet_tpu_torch.ops.bn_act import bn_act
+    rng = np.random.RandomState(23)
+
+    def operands(shape, device="cpu"):
+        c = shape[-1]
+        x, r = (torch.from_numpy((rng.randn(*shape) * 2).astype(np.float32))
+                .bfloat16().to(device) for _ in range(2))
+        scale = torch.from_numpy(rng.uniform(-1.5, 1.5, c).astype(np.float32))
+        shift = torch.from_numpy(rng.randn(c).astype(np.float32))
+        return x, r, scale.to(device), shift.to(device)
+
+    def same_as_cpu(got, x, scale, shift, r, relu):
+        want = bn_act(*(None if t is None else t.cpu()
+                        for t in (x, scale, shift, r)), relu)
+        return torch.equal(got.cpu().view(torch.int16),
+                           want.view(torch.int16))
+
+    checks = 0
+    for shape in BN_ACT_SHAPES:
+        for residual in (False, True):
+            for relu in (False, True):
+                x, r, scale, shift = operands(shape)
+                r = r if residual else None
+                before = bn_act.launches
+                got = bn_act(x.cuda(), scale.cuda(), shift.cuda(),
+                             None if r is None else r.cuda(), relu)
+                torch.cuda.synchronize()
+                assert bn_act.launches == before + 1, shape
+                assert same_as_cpu(got, x, scale, shift, r, relu), (
+                    shape, residual, relu)
+                checks += 1
+    x, r, scale, shift = operands((4, 16, 16, 256))
+    xm = torch.empty(x.numel() + 1, dtype=x.dtype,
+                     device="cuda")[1:].view(x.shape)
+    xm.copy_(x)
+    got = bn_act(xm, scale.cuda(), shift.cuda(), r.cuda(), True)
+    assert same_as_cpu(got, x, scale, shift, r, True)
+    checks += 1
+
+    # the full bucket: gamma, beta, mean, var of a batch norm and its affine
+    x, r, gamma, beta = operands(BN_ACT_TIMED, "cuda")
+    n, h, w, c = BN_ACT_TIMED
+    mean = torch.from_numpy(rng.randn(c).astype(np.float32)).cuda()
+    var = torch.from_numpy(rng.uniform(0.5, 2, c).astype(np.float32)).cuda()
+    scale, shift = bn_affine_tensors(gamma, beta, mean, var, 1e-5)
+    nchw, rnchw = x.permute(0, 3, 1, 2), r.permute(0, 3, 1, 2)
+
+    def unfused(residual):
+        t = F.batch_norm(nchw.float(), mean, var, gamma, beta, False, 0.0,
+                         1e-5).to(torch.bfloat16)
+        return t, torch.relu(t + rnchw if residual else t)
+
+    full = {}
+    for residual in (False, True):
+        res = r if residual else None
+        got = bn_act(x, scale, shift, res, True)
+        assert same_as_cpu(got, x, scale, shift, res, True), residual
+        t, want = (v.permute(0, 2, 3, 1) for v in unfused(residual))
+        bound = _bn_act_bound(torch, x, scale, shift, t, res)
+        within = bool(((got.float() - want.float()).abs() <= bound).all())
+        differ = float((got != want).float().mean())
+        assert within and differ <= BN_ACT_MAX_DIFFER, (residual, differ)
+        full["residual_relu" if residual else "relu"] = {
+            "share_differing_from_unfused": differ}
+        del got, t, want, bound
+        checks += 1
+    before, width = BN_ACT_SLICE
+    wide = torch.randn(n, h, w, before + width, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(
+                           23)).bfloat16()
+    view = wide[..., before:]
+    sc, sh = scale[:width], shift[:width]
+    for res in (None, wide[..., :width]):
+        got = bn_act(view, sc, sh, res, True)
+        assert same_as_cpu(got, view, sc, sh, res, True), res is None
+        checks += 1
+    del wide, view, got
+    torch.cuda.empty_cache()
+
+    def timing(fn, tensors):
+        # one untimed loop first: the card's clocks settle after the CPU
+        # checks above
+        for _ in range(BN_ACT_TIMED_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(BN_ACT_TIMED_CALLS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / BN_ACT_TIMED_CALLS
+        tbps = tensors * x.numel() * 2 / (ms * 1e-3) / 1e12
+        return {"ms": ms, "tb_per_s": tbps, "of_peak": tbps / HBM_TBPS}
+
+    row = {"card": card, "checks": checks, "timed_nhwc": list(BN_ACT_TIMED),
+           "calls": BN_ACT_TIMED_CALLS, "full_bucket": full,
+           "relu": timing(lambda: bn_act(x, scale, shift, None, True), 2),
+           "residual_relu": timing(lambda: bn_act(x, scale, shift, r, True),
+                                   3),
+           "unfused_relu_ms": timing(lambda: unfused(False), 2)["ms"],
+           "unfused_residual_relu_ms": timing(lambda: unfused(True), 3)["ms"]}
+    log = _build.BUILD_INFO.get("bn_act", {}).get("log", "")
+    row["ptxas"] = [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+    print(json.dumps({"bn_act": row}), flush=True)
+    return row
+
+
 def _launch_counts(fb, st):
-    """Set both fused kernels' and the rigid solve's launch counts to 0;
-    returns a function that reads them as {"tiled": n, "stencil": n,
-    "rigid": n}."""
+    """Set both fused kernels', the rigid solve's and bn_act's launch
+    counts to 0; returns a function that reads them as {"tiled": n,
+    "stencil": n, "rigid": n, "bn_act": n}."""
+    from egonet_tpu_torch.ops.bn_act import bn_act
     from egonet_tpu_torch.ops.rigid_solve import rigid_solve
     counted = {"tiled": fb.fused_basic_block,
-               "stencil": st.fused_basic_block_stencil, "rigid": rigid_solve}
+               "stencil": st.fused_basic_block_stencil, "rigid": rigid_solve,
+               "bn_act": bn_act}
     for wrapper in counted.values():
         wrapper.launches = 0
     return lambda: {k: w.launches for k, w in counted.items()}
@@ -801,7 +966,7 @@ def _drive(torch, model, annot, fb, st, out_dir):
     """One batch through dispatch -> finalize -> post_process, with the
     kernels' launch counts set to 0 just before and read just after.
     Checks that every instance got a 17-field txt line.  Returns (records,
-    {"tiled": n, "stencil": n, "rigid": n}, seconds)."""
+    {"tiled": n, "stencil": n, "rigid": n, "bn_act": n}, seconds)."""
     read = _launch_counts(fb, st)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -857,7 +1022,8 @@ def slice_phase(torch, np, fb, st):
     with tempfile.TemporaryDirectory() as out_dir:
         records, launches, first_s = _drive(torch, model, annot, fb, st,
                                             out_dir)
-    assert launches == {"tiled": 104, "stencil": 0, "rigid": 1}, launches
+    assert launches == {"tiled": 104, "stencil": 0, "rigid": 1,
+                        "bn_act": BN_ACT_PER_FORWARD}, launches
 
     ry = _ry(np, records)
     for p, rec in records.items():
@@ -895,7 +1061,8 @@ def stencil_slice_phase(torch, np, fb, st, model, annot, ry_tiled,
     with tempfile.TemporaryDirectory() as out_dir:
         records, launches, first_s = _drive(torch, model, annot, fb, st,
                                             out_dir)
-    assert launches == {"tiled": 0, "stencil": 104, "rigid": 1}, launches
+    assert launches == {"tiled": 0, "stencil": 104, "rigid": 1,
+                        "bn_act": BN_ACT_PER_FORWARD}, launches
     ry = _ry(np, records)
     assert np.isfinite(ry).all()
     d_tiled, d_unfused = _d_deg(np, ry, ry_tiled), _d_deg(np, ry, ry_unfused)
@@ -1618,7 +1785,8 @@ def native_phase(torch, np, fb, st, here, annot):
     with tempfile.TemporaryDirectory() as out_dir:
         records, launches, first_s = _drive(torch, model, annot, fb, st,
                                             out_dir)
-    assert launches == {"tiled": 0, "stencil": 0, "rigid": 1}, launches
+    assert launches == {"tiled": 0, "stencil": 0, "rigid": 1,
+                        "bn_act": 0}, launches
     ry = _ry(np, records)
     assert np.isfinite(ry).all()
     model32 = _slice_model(torch, native_demo_config(), torch.float32)
@@ -1742,9 +1910,11 @@ def train_ped_phase(torch, np, fb, st, root, annot, card):
                                        "max": float(d.max())}
     row["seconds"] = time.perf_counter() - t0
     print(json.dumps({"train_ped": row}), flush=True)
-    assert launches == {"tiled": {"tiled": 104, "stencil": 0, "rigid": 1},
-                        "stencil": {"tiled": 0, "stencil": 104, "rigid": 1}
-                        }, launches
+    bn = BN_ACT_PER_FORWARD
+    assert launches == {
+        "tiled": {"tiled": 104, "stencil": 0, "rigid": 1, "bn_act": bn},
+        "stencil": {"tiled": 0, "stencil": 104, "rigid": 1, "bn_act": bn}
+    }, launches
     for k in ("d_ry_tiled_vs_unfused_deg", "d_ry_stencil_vs_unfused_deg",
               "d_ry_stencil_vs_tiled_deg"):
         assert row[k]["median"] < 0.5, row
@@ -1814,7 +1984,8 @@ def options_phase(torch, np, fb, st, annot, ry_w48, root, card):
                          torch, model, annot, iters=5)}
         del model
         torch.cuda.empty_cache()
-        assert launches == {"tiled": 104, "stencil": 0, "rigid": 1}, \
+        assert launches == {"tiled": 104, "stencil": 0, "rigid": 1,
+                            "bn_act": BN_ACT_PER_FORWARD}, \
             (name, launches)
     x = torch.randn(N_FRAMES * N_BOXES, 3, 256, 256, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(4))
@@ -2302,7 +2473,9 @@ def mesh_phase(torch, np, fb, st, annot, card):
         other = "stencil" if path == "tiled" else "tiled"
         assert rows == 32, rows
         assert launches == {path: 104 * MESH_SHARDS, other: 0,
-                            "rigid": MESH_SHARDS}, launches
+                            "rigid": MESH_SHARDS,
+                            "bn_act": BN_ACT_PER_FORWARD * MESH_SHARDS}, \
+            launches
         n_inst = N_FRAMES * N_BOXES
         row[path] = {"bucket": rows, "launches": launches[path],
                      "launches_per_shard": launches[path] // MESH_SHARDS,
@@ -3028,7 +3201,8 @@ def _mc_mesh(torch, np, fb, st, n):
         want = single(annot)
         records, launches, rows = _mesh_batch(torch, fb, st, sharded, annot)
         other = "stencil" if path == "tiled" else "tiled"
-        assert launches == {path: 104 * n, other: 0, "rigid": n}, launches
+        assert launches == {path: 104 * n, other: 0, "rigid": n,
+                            "bn_act": BN_ACT_PER_FORWARD * n}, launches
         checked = {"single": _sync_free(torch, single, annot),
                    "mesh": _sync_free(torch, sharded, annot)}
         row[path] = {
@@ -3653,6 +3827,7 @@ def main(argv=None) -> int:
     ped_rows = timed("kernel_ped", kernel_ped_phase, torch, fb, st,
                      ped_tiled, ped_tiled_lib, ped_stencil, ped_stencil_lib)
     timed("rigid", rigid_phase, torch, np, card)
+    timed("bn_act", bn_act_phase, torch, np, card)
     result, model, annot, ry, ry_u = timed("slice", slice_phase, torch, np,
                                            fb, st)
     print(json.dumps({"slice": result}), flush=True)

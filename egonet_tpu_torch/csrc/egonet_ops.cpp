@@ -4,13 +4,18 @@
 //                             Tensor b2) -> Tensor
 //   egonet::fused_basic_block_stencil(<the same>) -> Tensor
 //   egonet::rigid_solve(Tensor kpts_3d) -> Tensor
+//   egonet::bn_act(Tensor x, Tensor scale, Tensor shift,
+//                  Tensor? residual=None, bool relu=False) -> Tensor
 //
 // The first two: y = relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2 + x)
 // on NHWC operands, batch norm folded (ops/fused_block.py).  The third: the
 // facade's rigid stage, [N, P, 3] fp32 points -> [N, 6] (rx, ry, rz, tx,
-// ty, tz) (ops/rigid_solve.py, csrc/rigid_solve.cuh).  This library holds
-// the schemas, the CPU kernels (the plain version of the blocks; the rigid
-// solve's per-crop routine in a loop, the arithmetic the card runs) and
+// ty, tz) (ops/rigid_solve.py, csrc/rigid_solve.cuh).  The fourth: an
+// inference batch norm's affine, an optional residual add and an optional
+// relu on an NHWC bf16 tensor in one pass (ops/bn_act.py, csrc/bn_act.cuh).
+// This library holds the schemas, the CPU kernels (the plain version of the
+// blocks; the rigid solve's per-crop routine and bn_act's per-element one
+// in loops, the arithmetic the card runs) and
 // the Meta kernels (the contract, for torch.export and fake tensors), plus
 // the launch counts.  libegonet_ops_cuda.so adds the CUDA kernels.  Both
 // load with torch.ops.load_library and nothing else: an exported program
@@ -21,6 +26,7 @@
 // torch's headers and libraries (c10, torch_cpu); it includes
 // torch/library.h and ATen's headers only, never torch/extension.h.
 
+#include <ATen/Parallel.h>
 #include <ATen/TensorOperators.h>
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/conv2d.h>
@@ -29,8 +35,12 @@
 #include <ATen/ops/relu.h>
 #include <torch/library.h>
 
+#include <algorithm>
 #include <atomic>
+#include <cstdint>
+#include <optional>
 
+#include "bn_act.cuh"
 #include "egonet_ops.h"
 #include "rigid_solve.cuh"
 
@@ -90,6 +100,56 @@ at::Tensor rigid_solve_meta(const at::Tensor& kpts) {
   return at::empty_symint({kpts.sym_size(0), 6}, kpts.options());
 }
 
+template <bool RES, bool RELU>
+void bn_act_rows(const uint16_t* x, int64_t xs, const float* scale,
+                 const float* shift, const uint16_t* res, int64_t rs,
+                 uint16_t* y, int64_t begin, int64_t end, int64_t c) {
+  for (int64_t p = begin; p < end; ++p) {
+    const uint16_t* xp = x + p * xs;
+    const uint16_t* rp = RES ? res + p * rs : nullptr;
+    uint16_t* yp = y + p * c;
+    for (int64_t ch = 0; ch < c; ++ch) {
+      yp[ch] = egonet::bn::one<RES, RELU>(xp[ch], scale[ch], shift[ch],
+                                          RES ? rp[ch] : uint16_t(0));
+    }
+  }
+}
+
+at::Tensor bn_act_cpu(const at::Tensor& x, const at::Tensor& scale,
+                      const at::Tensor& shift,
+                      const std::optional<at::Tensor>& residual, bool relu) {
+  egonet::check_bn_act(x, scale, shift, residual);
+  at::Tensor y = at::empty(x.sizes(), x.options());
+  const int64_t c = x.size(3), pixels = x.numel() / std::max<int64_t>(c, 1);
+  const int64_t xs = egonet::bn_act_pixel_stride(x).expect_int();
+  const int64_t rs = residual.has_value()
+                         ? egonet::bn_act_pixel_stride(*residual).expect_int()
+                         : c;
+  const auto* xp = static_cast<const uint16_t*>(x.const_data_ptr());
+  const auto* rp = residual.has_value()
+                       ? static_cast<const uint16_t*>(residual->const_data_ptr())
+                       : nullptr;
+  auto* yp = static_cast<uint16_t*>(y.mutable_data_ptr());
+  const float* sc = scale.const_data_ptr<float>();
+  const float* sh = shift.const_data_ptr<float>();
+  const auto rows = rp != nullptr ? (relu ? &bn_act_rows<true, true>
+                                          : &bn_act_rows<true, false>)
+                                  : (relu ? &bn_act_rows<false, true>
+                                          : &bn_act_rows<false, false>);
+  const int64_t grain = std::max<int64_t>(1, 32768 / std::max<int64_t>(c, 1));
+  at::parallel_for(0, pixels, grain, [&](int64_t begin, int64_t end) {
+    rows(xp, xs, sc, sh, rp, rs, yp, begin, end, c);
+  });
+  return y;
+}
+
+at::Tensor bn_act_meta(const at::Tensor& x, const at::Tensor& scale,
+                       const at::Tensor& shift,
+                       const std::optional<at::Tensor>& residual, bool relu) {
+  egonet::check_bn_act(x, scale, shift, residual);
+  return at::empty_symint(x.sym_sizes(), x.options());
+}
+
 }  // namespace
 
 // called through ctypes too, so they throw nothing: an unknown op reads -1
@@ -117,16 +177,21 @@ TORCH_LIBRARY(egonet, m) {
       "fused_basic_block_stencil(Tensor x, Tensor w1, Tensor b1, Tensor w2, "
       "Tensor b2) -> Tensor");
   m.def("rigid_solve(Tensor kpts_3d) -> Tensor");
+  m.def(
+      "bn_act(Tensor x, Tensor scale, Tensor shift, Tensor? residual=None, "
+      "bool relu=False) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(egonet, CPU, m) {
   m.impl("fused_basic_block", &plain);
   m.impl("fused_basic_block_stencil", &plain);
   m.impl("rigid_solve", &rigid_solve_cpu);
+  m.impl("bn_act", &bn_act_cpu);
 }
 
 TORCH_LIBRARY_IMPL(egonet, Meta, m) {
   m.impl("fused_basic_block", &meta<egonet::kTiled>);
   m.impl("fused_basic_block_stencil", &meta<egonet::kStencil>);
   m.impl("rigid_solve", &rigid_solve_meta);
+  m.impl("bn_act", &bn_act_meta);
 }

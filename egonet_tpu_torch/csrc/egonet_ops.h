@@ -7,9 +7,10 @@
 #include <c10/util/Exception.h>
 
 #include <cstdint>
+#include <optional>
 
 extern "C" {
-// Kernel launches of op `op` (kTiled, kStencil or kRigid), counted by
+// Kernel launches of op `op` (kTiled, kStencil, kRigid or kBnAct), counted by
 // libegonet_ops.so where a kernel launches: the CUDA kernels of
 // egonet_ops_cuda.cpp and the direct launches of ops/fused_block*.py
 // (ctypes), and nowhere else.
@@ -20,7 +21,7 @@ void egonet_add_launch(int op);
 
 namespace egonet {
 
-enum Op : int { kTiled = 0, kStencil = 1, kRigid = 2, kOps = 3 };
+enum Op : int { kTiled = 0, kStencil = 1, kRigid = 2, kBnAct = 3, kOps = 4 };
 
 // the widest channel count the stencil kernel's default library serves
 // (ops/fused_block_stencil.py, _MAX_C), from the prelude ops/_build.py
@@ -81,6 +82,66 @@ inline void check_rigid(const at::Tensor& kpts) {
   TORCH_CHECK_VALUE(kpts.sym_size(2) == 3 && (p == 32 || p == 33),
                     "kpts_3d must hold 32 or 33 points of 3 coordinates, got ",
                     kpts.sym_sizes());
+}
+
+// The distance in elements between neighbouring pixels of an [N, H, W, C]
+// tensor whose channels are adjacent and whose pixels lie at one step of
+// at least C (a channels_last NCHW tensor permuted: C; a channel slice of
+// one, as fuse_merge's split of a merged conv gives: the whole width), or
+// -1 for any other layout.  Strides of size-1 dimensions are not read.
+inline c10::SymInt bn_act_pixel_stride(const at::Tensor& t) {
+  const auto sizes = t.sym_sizes();
+  const auto strides = t.sym_strides();
+  if (sizes[3] != 1 && strides[3] != 1) return -1;
+  c10::SymInt step = sizes[3];
+  for (int d = 2; d >= 0; --d) {
+    if (sizes[d] != 1) {
+      step = strides[d];
+      break;
+    }
+  }
+  if (step < sizes[3]) return -1;
+  c10::SymInt span = step;
+  for (int d = 2; d >= 0; --d) {
+    if (sizes[d] != 1 && strides[d] != span) return -1;
+    span = span * sizes[d];
+  }
+  return step;
+}
+
+// egonet::bn_act's operands (ops/bn_act.py): x bf16 [N, H, W, C] of the
+// layout bn_act_pixel_stride reads, scale and shift contiguous fp32 [C],
+// the residual (if any) bf16 of x's sizes and of such a layout, all on x's
+// device; checked without data for the Meta kernel.
+inline void check_bn_act(const at::Tensor& x, const at::Tensor& scale,
+                         const at::Tensor& shift,
+                         const std::optional<at::Tensor>& residual) {
+  TORCH_CHECK_VALUE(
+      x.scalar_type() == at::kBFloat16 && x.dim() == 4 &&
+          bn_act_pixel_stride(x) != -1,
+      "x must be an NHWC bf16 tensor with adjacent channels and evenly "
+      "spaced pixels, got ", x.scalar_type(), " ", x.sym_sizes(),
+      " strides ", x.sym_strides());
+  const c10::SymInt c = x.sym_size(3);
+  for (const at::Tensor* t : {&scale, &shift}) {
+    TORCH_CHECK_VALUE(t->scalar_type() == at::kFloat && t->dim() == 1 &&
+                          t->sym_size(0) == c && t->is_contiguous(),
+                      "scale and shift must be contiguous fp32 [C] with C = ",
+                      c, ", got ", t->scalar_type(), " ", t->sym_sizes());
+    TORCH_CHECK_VALUE(t->device() == x.device(),
+                      "all operands must be on x's device");
+  }
+  if (residual.has_value()) {
+    const at::Tensor& r = *residual;
+    TORCH_CHECK_VALUE(r.scalar_type() == at::kBFloat16 &&
+                          r.sym_sizes() == x.sym_sizes() &&
+                          bn_act_pixel_stride(r) != -1,
+                      "residual must be a bf16 tensor of x's sizes ",
+                      x.sym_sizes(), " and layout, got ", r.scalar_type(),
+                      " ", r.sym_sizes(), " strides ", r.sym_strides());
+    TORCH_CHECK_VALUE(r.device() == x.device(),
+                      "all operands must be on x's device");
+  }
 }
 
 }  // namespace egonet

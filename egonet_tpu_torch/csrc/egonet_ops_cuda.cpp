@@ -4,13 +4,15 @@
 // default plan and launch the Hopper kernel of fused_basic_block.cu /
 // fused_basic_block_stencil.cu through its plain C entry point.
 // egonet::rigid_solve: check the operand and launch rigid_solve.cu's one
-// kernel over the batch.  Each on the current stream of its input's device
-// with that device current.
+// kernel over the batch.  egonet::bn_act: check the operands and launch
+// bn_act.cu's one pass over the tensor.  Each on the current stream of its
+// input's device with that device current.
 //
 // Host C++ only, built by ops/_build.py with the host compiler against
 // torch's headers (c10/cuda for the device guard and the stream) and
 // linked against libegonet_ops.so (the launch counts) and the kernel
-// libraries (the two default fused-block libraries and librigid_solve.so),
+// libraries (the two default fused-block libraries, librigid_solve.so and
+// libbn_act.so),
 // found beside it through the rpath $ORIGIN.  The kernel sources stay free
 // of torch's headers, so their nvcc builds take seconds.
 //
@@ -31,6 +33,7 @@
 
 #include <cstdint>
 #include <mutex>
+#include <optional>
 #include <set>
 #include <sstream>
 #include <string>
@@ -66,6 +69,10 @@ int egonet_fused_basic_block_stencil_clusters(int C, StencilPlan p,
 // rigid_solve.cu: 0 or a cudaError_t
 int egonet_rigid_solve(const float* kpts, float* out, int n, int p,
                        void* stream);
+// bn_act.cu: 0 or a cudaError_t
+int egonet_bn_act(const void* x, int64_t x_stride, const float* scale,
+                  const float* shift, const void* residual, int64_t r_stride,
+                  void* y, int64_t pixels, int c, int relu, void* stream);
 }
 
 namespace {
@@ -198,10 +205,34 @@ at::Tensor rigid_solve_cuda(const at::Tensor& kpts) {
   return out;
 }
 
+at::Tensor bn_act_cuda(const at::Tensor& x, const at::Tensor& scale,
+                       const at::Tensor& shift,
+                       const std::optional<at::Tensor>& residual, bool relu) {
+  egonet::check_bn_act(x, scale, shift, residual);
+  const c10::cuda::CUDAGuard guard(x.device());
+  at::Tensor y = at::empty(x.sizes(), x.options());
+  const int64_t c = x.size(3);
+  if (x.numel() == 0) return y;
+  void* stream = c10::cuda::getCurrentCUDAStream(x.device().index()).stream();
+  const int err = egonet_bn_act(
+      x.const_data_ptr(), egonet::bn_act_pixel_stride(x).expect_int(),
+      scale.const_data_ptr<float>(), shift.const_data_ptr<float>(),
+      residual.has_value() ? residual->const_data_ptr() : nullptr,
+      residual.has_value()
+          ? egonet::bn_act_pixel_stride(*residual).expect_int()
+          : c,
+      y.mutable_data_ptr(), x.numel() / c, int(c), relu ? 1 : 0, stream);
+  TORCH_CHECK(err == 0, "bn_act launch failed: ", cuda_error(err), " (sizes ",
+              x.sizes(), ")");
+  egonet_add_launch(egonet::kBnAct);
+  return y;
+}
+
 }  // namespace
 
 TORCH_LIBRARY_IMPL(egonet, CUDA, m) {
   m.impl("fused_basic_block", &fused_cuda<egonet::kTiled>);
   m.impl("fused_basic_block_stencil", &fused_cuda<egonet::kStencil>);
   m.impl("rigid_solve", &rigid_solve_cuda);
+  m.impl("bn_act", &bn_act_cuda);
 }

@@ -12,7 +12,8 @@ every tensor a checkpoint determines as an input — the HRNet and lifter
 parameters and batch-norm statistics (``HC.pth`` / ``L.pth`` key names),
 the lifter statistics (``LS.npy``) and the bf16 inference weights derived
 from them (each conv weight cast once, each fused block's batch norm
-folded; ``models/layers.CachedInference``).  The ``.pt2`` files hold the
+folded, every other batch norm's fp32 scale and shift;
+``models/layers.CachedInference``).  The ``.pt2`` files hold the
 graph only (their state is saved on the meta device); :func:`bind` lays a
 checkpoint into a loaded program, deriving the inference weights by the
 recipes the manifest lists, so one artifact serves every checkpoint of the
@@ -23,10 +24,11 @@ uint8, meta [bucket, META_COLS] f32)``; each instance's frame index is read
 from meta's column 8 on the device (as the JAX artifact reads it), so the
 graph holds no request's indices.  Both fused BasicBlock kernels and the
 rigid solve are torch operators defined in C++ (``egonet::fused_basic_block``,
-``egonet::fused_basic_block_stencil``, ``egonet::rigid_solve``;
-``csrc/egonet_ops*.cpp``): each fusable HRNet block is one node of the
-graph, the rigid stage another, and the program exported on the card
-launches the kernels there.
+``egonet::fused_basic_block_stencil``, ``egonet::rigid_solve``,
+``egonet::bn_act``; ``csrc/egonet_ops*.cpp``): each fusable HRNet block is
+one node of the graph, each other batch norm (with its residual add and
+relu) one more, the rigid stage another, and the program exported on the
+card launches the kernels there.
 
 An artifact directory stands alone, as the JAX package's does (a Pallas
 kernel rides in its StableHLO): :func:`export_shape_set` copies the
@@ -57,7 +59,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from egonet_tpu_torch.io.weights import fold_conv_bn_tensors
+from egonet_tpu_torch.io.weights import (bn_affine_tensors,
+                                          fold_conv_bn_tensors)
 
 LS_KEYS = ("mean_in", "std_in", "mean_out", "std_out")
 FUSED_OPS = ("egonet.fused_basic_block", "egonet.fused_basic_block_stencil")
@@ -89,7 +92,8 @@ class ExportCore(nn.Module):
         cache = model.hrnet.inference_cache()
         names = {m: n for n, m in model.hrnet.named_modules()}
         self._stencil = bool(cache["stencil"])
-        self._cast, self._folded, self.recipes = [], [], []
+        self._cast, self._folded, self._affine = [], [], []
+        self.recipes = []
         for i, (key, w) in enumerate(cache["cast"].items()):
             buf = f"cast_{i}"
             self.derived.register_buffer(buf, w)
@@ -105,12 +109,21 @@ class ExportCore(nn.Module):
             self.recipes.append({"fold": names[blk],
                                  "eps": [blk.bn1.eps, blk.bn2.eps],
                                  "into": ["derived." + b for b in bufs]})
+        for i, (bn, tensors) in enumerate(cache["affine"].items()):
+            bufs = [f"affine_{i}_{t}" for t in ("scale", "shift")]
+            for buf, t in zip(bufs, tensors):
+                self.derived.register_buffer(buf, t)
+            self._affine.append((bn, bufs))
+            self.recipes.append({"affine": names[bn], "eps": bn.eps,
+                                 "into": ["derived." + b for b in bufs]})
 
     def forward(self, images, meta):
         d = self.derived
         cache = {"cast": {k: getattr(d, b) for k, b in self._cast},
                  "folded": {blk: tuple(getattr(d, b) for b in bufs)
                             for blk, bufs in self._folded},
+                 "affine": {bn: tuple(getattr(d, b) for b in bufs)
+                            for bn, bufs in self._affine},
                  "stencil": self._stencil}
         saved = self.hrnet._inference_cache
         self.hrnet._inference_cache = cache
@@ -294,7 +307,7 @@ def weights_for(manifest: dict, hrnet_state: dict, lifter_state: dict,
     (L.pth), ``ls.*`` from ``ls_stats`` (LS.npy) and ``derived.*`` by the
     manifest's recipes (the conv weights cast to bf16 ``channels_last``,
     concatenated for a ``fuse_merge`` group; the fused blocks' batch norms
-    folded), on ``device``."""
+    folded; the other batch norms' scale and shift), on ``device``."""
     hs = {k: torch.as_tensor(v).to(device) for k, v in hrnet_state.items()}
     state = {"hrnet." + k: v for k, v in hs.items()}
     state.update({"lifter." + k: torch.as_tensor(v).to(device)
@@ -312,6 +325,12 @@ def weights_for(manifest: dict, hrnet_state: dict, lifter_state: dict,
                 w = ws[0] if len(ws) == 1 else torch.cat(ws).contiguous(
                     memory_format=torch.channels_last)
                 state[r["into"][0]] = w
+            elif "affine" in r:
+                bn = r["affine"] + "."
+                state.update(zip(r["into"], bn_affine_tensors(
+                    hs[bn + "weight"], hs[bn + "bias"],
+                    hs[bn + "running_mean"], hs[bn + "running_var"],
+                    r["eps"])))
             else:
                 blk = r["fold"]
                 out = []

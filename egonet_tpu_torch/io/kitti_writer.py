@@ -7,7 +7,6 @@ empty files a test-split submission needs."""
 from __future__ import annotations
 
 import os
-from copy import deepcopy
 
 
 def instance_str(dic: dict) -> str:
@@ -33,18 +32,10 @@ def prediction_str(raw_txt_format: list, euler_angles, alphas) -> str:
 
     raw_txt_format: per-instance dicts parsed from the detector txt;
     euler_angles: [N, 3]; alphas: [N]."""
-    updated = deepcopy(raw_txt_format)
-    n = len(euler_angles)
-    for i in range(n):
-        updated[i]["rot_y"] = float(euler_angles[i][1])
-        updated[i]["alpha"] = float(alphas[i])
-    lines = []
-    for i in range(n):
-        s = instance_str(updated[i])
-        if i != n - 1:
-            s += "\n"
-        lines.append(s)
-    return "".join(lines)
+    return "\n".join(
+        instance_str(dict(raw_txt_format[i], rot_y=float(euler_angles[i][1]),
+                          alpha=float(alphas[i])))
+        for i in range(len(euler_angles)))
 
 
 def save_txt_file(img_path: str, pred_str: str, save_dir: str) -> str:

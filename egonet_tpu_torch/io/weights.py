@@ -147,16 +147,25 @@ def load_lifter_stats(path: str) -> dict:
 
 
 @torch.no_grad()
+def bn_affine_tensors(gamma, beta, mean, var, eps: float):
+    """An inference-mode batch norm as a per-channel affine, in fp32 on the
+    tensors' device: (scale = gamma / sqrt(var + eps), shift = beta - mean
+    * scale), each [C] contiguous: the operands of ``ops/bn_act.py`` and
+    the fold of :func:`fold_conv_bn_tensors`; here so that an exported
+    program binds a checkpoint without the kernels' modules."""
+    scale = gamma.float() / torch.sqrt(var.float() + eps)
+    return scale.contiguous(), (beta.float() - mean.float() * scale).contiguous()
+
+
+@torch.no_grad()
 def fold_conv_bn_tensors(weight, gamma, beta, mean, var, eps: float):
     """Fold an inference-mode batch norm into the bias-free OIHW conv before
     it, in fp32 on the tensors' device: a ``state_dict``'s conv ``weight``
     and the batch norm's ``weight``, ``bias``, ``running_mean`` and
     ``running_var``.  Returns (w [C_out, 3, 3, C_in] bf16, b [C] fp32) in
-    the fused BasicBlock kernels' layout (``ops/fused_block.py``); here so
-    that an exported program binds a checkpoint without the kernels'
-    modules (``io/export.py``)."""
-    inv = gamma.float() / torch.sqrt(var.float() + eps)
+    the fused BasicBlock kernels' layout (``ops/fused_block.py``): the
+    weight scaled by :func:`bn_affine_tensors`' scale, its shift the
+    bias."""
+    inv, b = bn_affine_tensors(gamma, beta, mean, var, eps)
     w = weight.float() * inv[:, None, None, None]
-    b = beta.float() - mean.float() * inv
-    return (w.permute(0, 2, 3, 1).contiguous().to(torch.bfloat16),
-            b.contiguous())
+    return w.permute(0, 2, 3, 1).contiguous().to(torch.bfloat16), b

@@ -383,39 +383,31 @@ class EgoNet:
             else:
                 decoded = [self.load_image(p) for p in paths]
 
-            inv_mats, img_idx, centers, scales, rbs = [], [], [], [], []
-            per_image_counts, whs = [], []
-            for i in range(n_img):
-                h, w = decoded[i].shape[:2]
-                boxes = np.asarray(annot_dict["boxes"][i], dtype=np.float64)
-                per_image_counts.append(len(boxes))
-                if len(boxes) == 0:
-                    continue
-                mats = affine.crop_matrices_for_boxes(
-                    boxes, (height, width), target_ar, enlarge)
-                inv_mats.append(mats["inv"])
-                centers.append(mats["center"])
-                scales.append(mats["scale"])
-                rbs.append(mats["bbox_resize"])
-                img_idx.extend([i] * len(boxes))
-                whs.extend([(w, h)] * len(boxes))
-
+            boxes = [np.asarray(b, dtype=np.float64)
+                     for b in annot_dict["boxes"]]
+            per_image_counts = [len(b) for b in boxes]
             n_total = int(sum(per_image_counts))
             if n_total == 0:
                 return None
-            inv_f64 = np.concatenate(inv_mats)
+            img_idx = np.repeat(np.arange(n_img, dtype=np.int32),
+                                per_image_counts)
+            whs = np.asarray([im.shape[1::-1] for im in decoded],
+                             np.float64)[img_idx]
+            # one call over the batch's boxes: each box's matrices are
+            # elementwise in its own coordinates
+            mats = affine.crop_matrices_for_boxes(
+                np.concatenate([b.reshape(-1, 4) for b in boxes]),
+                (height, width), target_ar, enlarge)
+            inv_f64 = mats["inv"]
             inv_mats = inv_f64.astype(np.float32)
-            centers = np.concatenate(centers)
-            scales = np.concatenate(scales)
-            rbs = np.concatenate(rbs)
-            img_idx = np.asarray(img_idx, dtype=np.int32)
+            centers, scales = mats["center"], mats["scale"]
+            rbs = mats["bbox_resize"]
 
             # transport: the ROI-packed canvas when it moves fewer bytes than
             # the zero-padded full canvases, or when a frame exceeds the canvas
             plan = None
             if self.pack_mode != "never":
-                plan = packing.plan(inv_f64, (height, width),
-                                    np.asarray(whs, np.float64),
+                plan = packing.plan(inv_f64, (height, width), whs,
                                     profile=pack_profile)
             use_pack = False
             if plan is not None:
@@ -447,8 +439,8 @@ class EgoNet:
 
             Ks = [np.asarray(annot_dict["K"][i]) if "K" in annot_dict
                   else np.eye(3) for i in range(n_img)]
-            K_f = np.array([Ks[j][0, 0] for j in img_idx], np.float32)
-            K_cx = np.array([Ks[j][0, 2] for j in img_idx], np.float32)
+            K_f = np.array([k[0, 0] for k in Ks])[img_idx].astype(np.float32)
+            K_cx = np.array([k[0, 2] for k in Ks])[img_idx].astype(np.float32)
 
             bucket = _round_up_bucket(n_total)
             if pack_profile == "serving":
@@ -476,7 +468,7 @@ class EgoNet:
             meta[:n_total, 10] = K_f
             meta[:n_total, 11] = K_cx
             meta[:, 12:14] = 1.0
-            meta[:n_total, 12:14] = np.asarray(whs, np.float32)
+            meta[:n_total, 12:14] = whs
 
         run = (functools.partial(self._core_packed, window_h=plan.window_h)
                if use_pack else self._core)

@@ -33,8 +33,12 @@ kernels that compute the same function (their plain version on the CPU):
   kernel, selected by ``EGONET_PALLAS_STENCIL=1`` (or ``'auto'``: when its
   probe passes), or by ``prepare_inference(stencil="1")``.
 
-Train mode, fp32 and fp64 runs, stride-2 and downsampling blocks (the
-heads' blocks among them) stay unfused torch ops (cuDNN).
+Every other batch norm (96 in W48 and in W32) then runs with the residual
+add and relu after it as one ``ops.bn_act`` pass: its fp32 affine in one
+fused multiply-add rounded to bf16, then the bf16 add and relu, the
+roundings of the unfused ops.  Train mode, fp32 and fp64 runs stay unfused
+torch ops (cuDNN), as do the stride-2 and downsampling blocks' convs (the
+heads' blocks among them).
 
 Train mode follows the JAX package's batch norm: each layer normalizes
 with the biased batch statistics and moves its running variance with the
@@ -51,6 +55,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from egonet_tpu_torch.io.weights import bn_affine_tensors
 from egonet_tpu_torch.models.layers import (BN_MOMENTUM, CachedInference,
                                            Ops, batch_norm, pixel_shuffle)
 from egonet_tpu_torch.models.layers import bn as _bn
@@ -90,8 +95,8 @@ class _Ops(Ops):
     ``fuse_merge`` switch (see ``prepare_inference``)."""
 
     def __init__(self, dtype, cast=None, stencil=False, merge=False,
-                 act_quant="none", act_quant_scale=8.0):
-        super().__init__(dtype, cast, act_quant, act_quant_scale)
+                 act_quant="none", act_quant_scale=8.0, affine=None):
+        super().__init__(dtype, cast, act_quant, act_quant_scale, affine)
         self.stencil = stencil
         self.merge = merge
 
@@ -137,11 +142,12 @@ class BasicBlock(nn.Module):
                 .permute(0, 2, 3, 1), folded)
             return ops.transport(y.permute(0, 3, 1, 2))
         residual = x
-        y = torch.relu(ops.bn(self.bn1, ops.conv(self.conv1, x)))
-        y = ops.bn(self.bn2, ops.conv(self.conv2, y))
+        y = ops.bn(self.bn1, ops.conv(self.conv1, x), relu=True)
+        y = ops.conv(self.conv2, y)
         if self.downsample is not None:
             residual = ops.conv_bn(self.downsample, x)
-        return ops.transport(torch.relu(y + residual))
+        return ops.transport(ops.bn(self.bn2, y, relu=True,
+                                    residual=residual))
 
 
 class Bottleneck(nn.Module):
@@ -175,12 +181,13 @@ class Bottleneck(nn.Module):
             y = ops.conv(self.conv1, x)
             residual = (x if self.downsample is None
                         else ops.conv(self.downsample[0], x))
-        y = torch.relu(ops.bn(self.bn1, y))
-        y = torch.relu(ops.bn(self.bn2, ops.conv(self.conv2, y)))
-        y = ops.bn(self.bn3, ops.conv(self.conv3, y))
+        y = ops.bn(self.bn1, y, relu=True)
+        y = ops.bn(self.bn2, ops.conv(self.conv2, y), relu=True)
+        y = ops.conv(self.conv3, y)
         if self.downsample is not None:
             residual = ops.bn(self.downsample[1], residual)
-        return ops.transport(torch.relu(y + residual))
+        return ops.transport(ops.bn(self.bn3, y, relu=True,
+                                    residual=residual))
 
 
 def _upsample2(x):
@@ -251,8 +258,8 @@ class HighResolutionModule(nn.Module):
                     if kind == "up":
                         first[(i, j)] = ops.bn(self.fuse_layers[i][j][1], t)
                     else:
-                        t = ops.bn(self.fuse_layers[i][j][0][1], t)
-                        first[(i, j)] = t if i == j + 1 else torch.relu(t)
+                        first[(i, j)] = ops.bn(self.fuse_layers[i][j][0][1],
+                                               t, relu=i != j + 1)
         fused = []
         for i in range(self.out_count):
             acc = None
@@ -262,10 +269,13 @@ class HighResolutionModule(nn.Module):
                 else:
                     t = first[(i, j)] if merge else ys[j]
                     chain = self.fuse_layers[i][j]
-                    for k in range(1 if merge else 0, i - j):
-                        t = ops.conv_bn(chain[k], t)
-                        if k != i - j - 1:
-                            t = torch.relu(t)
+                    start = 1 if merge else 0
+                    for k in range(start, i - j - 1):
+                        t = ops.conv_bn(chain[k], t, relu=True)
+                    if start < i - j:
+                        # the chain's last link adds itself to the sum
+                        acc = ops.conv_bn(chain[i - j - 1], t, residual=acc)
+                        continue
                 acc = t if acc is None else acc + t
             # lower-resolution contributions, summed coarse-to-fine (nearest
             # up4 = up2(up2(.)), so one full-res tensor is materialized)
@@ -397,11 +407,11 @@ class PoseHighResolutionNet(CachedInference):
         for i, layer in enumerate(layers):
             if i < num_pre:
                 outs.append(x_list[i] if layer is None else ops.transport(
-                    torch.relu(ops.conv_bn(layer, x_list[-1]))))
+                    ops.conv_bn(layer, x_list[-1], relu=True)))
             else:
                 y = x_list[-1]
                 for cb in layer:
-                    y = torch.relu(ops.conv_bn(cb, y))
+                    y = ops.conv_bn(cb, y, relu=True)
                 outs.append(y)
         return outs
 
@@ -431,8 +441,9 @@ class PoseHighResolutionNet(CachedInference):
     def prepare_inference(self, stencil: str | None = None):
         """Fold BN into every fusable branch block, pre-cast the conv
         weights to the compute dtype (and concatenate ``fuse_merge``'s
-        groups), once, from the current fp32 parameters, and choose the
-        fused-block kernel: ``fused_block_stencil.stencil_enabled(stencil)``
+        groups; each other batch norm's fp32 (scale, shift) for
+        ``ops.bn_act``), once, from the current fp32 parameters, and choose
+        the fused-block kernel: ``fused_block_stencil.stencil_enabled(stencil)``
         ('0' tiled, '1' stencil, 'auto' probe; None reads
         EGONET_PALLAS_STENCIL).  Both kernels take the same folded weights.
         Rebuilt after ``load_state_dict`` and whenever the parameters move
@@ -445,12 +456,20 @@ class PoseHighResolutionNet(CachedInference):
     def _build_cache(self) -> dict:
         cache = super()._build_cache()
         cache["folded"] = {}
+        cache["affine"] = {}
         cache["stencil"] = fused_block_stencil.stencil_enabled(self.stencil)
         if self.dtype == torch.bfloat16:
             for blk in self._fusable_blocks(cache["stencil"]):
                 cache["folded"][blk] = (
                     *fused_block.fold_conv_bn(blk.conv1.weight, blk.bn1),
                     *fused_block.fold_conv_bn(blk.conv2.weight, blk.bn2))
+            folded = {bn for blk in cache["folded"]
+                      for bn in (blk.bn1, blk.bn2)}
+            for m in self.modules():
+                if isinstance(m, nn.BatchNorm2d) and m not in folded:
+                    cache["affine"][m] = bn_affine_tensors(
+                        m.weight, m.bias, m.running_mean, m.running_var,
+                        m.eps)
             if self.fuse_merge:
                 for group in self._merge_groups():
                     cache["cast"][group] = torch.cat(
@@ -464,12 +483,13 @@ class PoseHighResolutionNet(CachedInference):
         cache = self.inference_cache()
         ops = _Ops(self.dtype, cache["cast"] if cache else None,
                    bool(cache and cache["stencil"]), self.fuse_merge,
-                   self.act_quant, self.act_quant_scale)
+                   self.act_quant, self.act_quant_scale,
+                   cache["affine"] if cache else None)
         folded = (cache["folded"] if cache and self.fuse_blocks
                   else {})
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
-        x = torch.relu(ops.bn(self.bn1, ops.conv(self.conv1, x)))
-        x = torch.relu(ops.bn(self.bn2, ops.conv(self.conv2, x)))
+        x = ops.bn(self.bn1, ops.conv(self.conv1, x), relu=True)
+        x = ops.bn(self.bn2, ops.conv(self.conv2, x), relu=True)
         for blk in self.layer1:
             x = blk.run(ops, x)
         ys = [x]
@@ -499,7 +519,7 @@ class PoseHighResolutionNet(CachedInference):
     def _heatmap_head(self, ops, y0):
         x = ops.conv(self.final_layer, y0)
         if self.upsample_layer is not None:
-            x = torch.relu(ops.conv_bn(self.upsample_layer, x))
+            x = ops.conv_bn(self.upsample_layer, x, relu=True)
             x = pixel_shuffle(x, self.shuffle)
         return x.to(ops.stat_dtype)
 

@@ -9,7 +9,9 @@ in a data-parallel run the statistics are the global batch's.
 weights where a model has them, with the int8 activation transport
 (``act_quant``) of the JAX package; ``CachedInference`` is the base of the
 heatmap models, which builds those weights and drops them whenever the
-parameters may move.
+parameters may move.  Where a model's table holds a batch norm's affine
+(the HRNet's, in bf16 inference), ``Ops.bn`` runs that batch norm with the
+residual add and relu after it as one pass (``ops/bn_act.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from egonet_tpu_torch.ops import bn_act
 from egonet_tpu_torch.parallel import mesh
 
 BN_MOMENTUM = 0.1
@@ -99,17 +102,19 @@ def pixel_shuffle(x, r: int):
 
 class Ops:
     """The primitive layers, parameterized by the compute dtype, an
-    optional table of pre-cast weights (``CachedInference``) and the
-    activation transport.  Batch norm runs in fp32 for fp32 and bf16
-    models, in fp64 for fp64 ones."""
+    optional table of pre-cast weights (``CachedInference``), an optional
+    table of batch norms' (scale, shift) and the activation transport.
+    Batch norm runs in fp32 for fp32 and bf16 models, in fp64 for fp64
+    ones."""
 
     merge = False          # the HRNet's fuse_merge switch (models/hrnet.py)
 
     def __init__(self, dtype, cast=None, act_quant="none",
-                 act_quant_scale=8.0):
+                 act_quant_scale=8.0, affine=None):
         self.dtype = dtype
         self.stat_dtype = torch.promote_types(torch.float32, dtype)
         self.cast = cast or {}
+        self.affine = affine or {}
         self.act_quant = act_quant
         self.act_quant_scale = float(act_quant_scale)
 
@@ -133,11 +138,29 @@ class Ops:
         return F.linear(x.to(self.stat_dtype), m.weight.to(self.stat_dtype),
                         m.bias.to(self.stat_dtype))
 
-    def bn(self, m: nn.BatchNorm2d, x):
-        return batch_norm(m, x, self.stat_dtype).to(self.dtype)
+    def bn(self, m: nn.BatchNorm2d, x, relu: bool = False, residual=None):
+        """``m`` on ``x`` in the compute dtype, then ``+ residual`` and
+        relu where asked.  In bf16 eval mode with ``m``'s (scale, shift)
+        in the table one ``bn_act`` pass, which takes NHWC storage
+        (``channels_last``, or a channel slice of it) and refuses any other
+        layout; else (train mode, fp32, fp64) batch norm in the statistics
+        dtype, the cast back, the add and the relu, each a pass."""
+        affine = self.affine.get(m)
+        if (affine is not None and not m.training
+                and self.dtype == torch.bfloat16):
+            y = bn_act.bn_act(
+                x.permute(0, 2, 3, 1), *affine,
+                None if residual is None else residual.permute(0, 2, 3, 1),
+                relu)
+            return y.permute(0, 3, 1, 2)
+        y = batch_norm(m, x, self.stat_dtype).to(self.dtype)
+        if residual is not None:
+            y = y + residual
+        return torch.relu(y) if relu else y
 
-    def conv_bn(self, seq: nn.Sequential, x):
-        return self.bn(seq[1], self.conv(seq[0], x))
+    def conv_bn(self, seq: nn.Sequential, x, relu: bool = False,
+                residual=None):
+        return self.bn(seq[1], self.conv(seq[0], x), relu, residual)
 
     def transport(self, x):
         """Quantize-dequantize a post-ReLU tensor crossing a fusion boundary

@@ -9,12 +9,13 @@ shared header of its kind or its prelude is newer than the library) into
   shared library with a plain C interface, loaded with ``ctypes``.  Nothing
   there includes PyTorch's headers, so a build takes seconds.
 * the operators, ``csrc/egonet_ops.cpp`` (``libegonet_ops.so``: the schemas
-  of ``egonet::fused_basic_block``, ``egonet::fused_basic_block_stencil``
-  and ``egonet::rigid_solve``, their CPU and Meta kernels and the launch
-  counts) and, on the card, ``csrc/egonet_ops_cuda.cpp``
-  (``libegonet_ops_cuda.so``: their CUDA kernels, linked against both
-  default fused-block libraries, ``librigid_solve.so`` and
-  ``libegonet_ops.so``, found beside it through the rpath ``$ORIGIN``):
+  of ``egonet::fused_basic_block``, ``egonet::fused_basic_block_stencil``,
+  ``egonet::rigid_solve`` and ``egonet::bn_act``, their CPU and Meta
+  kernels and the launch counts) and, on the card,
+  ``csrc/egonet_ops_cuda.cpp`` (``libegonet_ops_cuda.so``: their CUDA
+  kernels, linked against both default fused-block libraries,
+  ``librigid_solve.so``, ``libbn_act.so`` and ``libegonet_ops.so``, found
+  beside it through the rpath ``$ORIGIN``):
   compiled by the system C++ compiler (``c++``) against the installed
   torch's headers and libraries and loaded with ``torch.ops.load_library``
   (:func:`load_ops`).
@@ -55,9 +56,10 @@ CXX_FLAGS = ["-O2", "-std=c++20", "-fPIC"]
 # the operator libraries and the kernel libraries the CUDA one links
 OPS, OPS_CUDA = "egonet_ops", "egonet_ops_cuda"
 _LINKS = {OPS: (), OPS_CUDA: (OPS, "fused_basic_block",
-                              "fused_basic_block_stencil", "rigid_solve")}
+                              "fused_basic_block_stencil", "rigid_solve",
+                              "bn_act")}
 # the ops' numbers in the launch counts (csrc/egonet_ops.h, egonet::Op)
-TILED, STENCIL, RIGID = 0, 1, 2
+TILED, STENCIL, RIGID, BN_ACT = 0, 1, 2, 3
 
 _LIBS: dict = {}
 # device types whose operator libraries are loaded
@@ -140,8 +142,9 @@ def _stale(name: str, source: str | None = None,
            prelude: str | None = None) -> bool:
     """The library is missing or older than its source, its prelude or any
     shared header of its kind (``csrc/*.cuh`` for a kernel; ``csrc/*.h``
-    and ``csrc/*.cuh`` for the operators, whose CPU kernel of the rigid
-    solve is ``rigid_solve.cuh``'s routine)."""
+    and ``csrc/*.cuh`` for the operators, whose CPU kernels of the rigid
+    solve and of bn_act are ``rigid_solve.cuh``'s and ``bn_act.cuh``'s
+    routines)."""
     src, lib = _paths(name, source)
     if not os.path.exists(lib):
         return True
@@ -291,13 +294,13 @@ def _plans_prelude() -> str:
 def ops_libs(device_type: str = "cpu") -> list:
     """The libraries :func:`load_ops` builds for ``device_type``, as
     :func:`build` takes them (in link order): the CPU operators, and for
-    ``"cuda"`` the kernel libraries (both default fused-block libraries and
-    the rigid solve's) and the CUDA operators."""
+    ``"cuda"`` the kernel libraries (both default fused-block libraries,
+    the rigid solve's and bn_act's) and the CUDA operators."""
     libs = [(OPS, OPS + ".cpp", _ops_prelude())]
     if device_type == "cuda":
         from egonet_tpu_torch.ops import fused_block as fb
         from egonet_tpu_torch.ops import fused_block_stencil as st
-        libs += [fb.library(), st.library(), "rigid_solve",
+        libs += [fb.library(), st.library(), "rigid_solve", "bn_act",
                  (OPS_CUDA, OPS_CUDA + ".cpp",
                   _ops_prelude() + _plans_prelude())]
     return libs
@@ -314,9 +317,9 @@ def _loaded_copy(name: str):
 
 
 def load_ops(device_type: str = "cpu") -> None:
-    """Register the operators (both fused BasicBlocks and the rigid solve)
-    for ``device_type`` (the CPU and Meta kernels; with ``"cuda"`` the CUDA
-    ones too), building their libraries first where needed.  A library
+    """Register the operators (both fused BasicBlocks, the rigid solve and
+    bn_act) for ``device_type`` (the CPU and Meta kernels; with ``"cuda"``
+    the CUDA ones too), building their libraries first where needed.  A library
     already loaded, from here or from an artifact directory, is kept."""
     if device_type in _OPS_LOADED:
         return
@@ -351,7 +354,7 @@ def _counts() -> ctypes.CDLL:
 
 def launches(op: int) -> int:
     """Kernel launches of op ``op`` (:data:`TILED`, :data:`STENCIL`,
-    :data:`RIGID`) since the count was last set, through the operator or
+    :data:`RIGID`, :data:`BN_ACT`) since the count was last set, through the operator or
     direct."""
     return int(_counts().egonet_launches(op))
 

@@ -200,6 +200,17 @@ def test_artifacts_hold_no_weights(model, exported):
     assert len(cache["folded"]) == 9
 
 
+def test_graph_holds_one_bn_act_node_per_batch_norm(model, exported):
+    """Each batch norm outside the fused blocks is one ``egonet::bn_act``
+    node of the bf16 program (its residual add and relu inside), and the
+    manifest derives each one's scale and shift."""
+    _, manifest, programs, _ = exported
+    n = len(model.hrnet.inference_cache()["affine"])
+    targets = [str(node.target) for node in programs[8].graph.nodes]
+    assert targets.count("egonet.bn_act.default") == n > 0
+    assert sum("affine" in r for r in manifest["derived"]) == n
+
+
 def test_second_weight_set_through_the_same_artifact(exported):
     """A second seeded weight set, written as HC.pth / L.pth / LS.npy and
     read back, laid into the artifact equals a live model built with it."""
