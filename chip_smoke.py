@@ -240,6 +240,7 @@ world at N, 2 and 1 ranks: crops trained per second).  Then the card and
 """
 
 import copy
+import ctypes
 import json
 import os
 import re
@@ -422,6 +423,105 @@ def _bound(c, h, w):
     return ops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+# ---------------------------------------------------------------------------
+# direct launches: a plan straight from a kernel library, for the sweeps
+# ---------------------------------------------------------------------------
+
+# kernel library name -> its ctypes handle; kernel module -> plan struct
+_KERNEL_LIBS: dict = {}
+_PLAN_STRUCTS: dict = {}
+
+
+def _kernel_lib(lib):
+    """The kernel library ``lib`` (as ``library()`` names it), built if
+    stale and loaded with ctypes, once."""
+    from egonet_tpu_torch.ops import _build
+    name = lib[0]
+    if name not in _KERNEL_LIBS:
+        _build.build([lib])
+        _KERNEL_LIBS[name] = ctypes.CDLL(
+            os.path.join(_build.BUILD_DIR, f"lib{name}.so"))
+    return _KERNEL_LIBS[name]
+
+
+def _plan_struct(mod, plan):
+    """``plan`` as the kernel's C struct: the fields of ``mod._PLAN_FIELDS``
+    in their order, each an int."""
+    cls = _PLAN_STRUCTS.get(mod.__name__)
+    if cls is None:
+        cls = _PLAN_STRUCTS[mod.__name__] = type(
+            "Plan", (ctypes.Structure,),
+            {"_fields_": [(f, ctypes.c_int) for f in mod._PLAN_FIELDS]})
+    return cls(*(getattr(plan, f) for f in mod._PLAN_FIELDS))
+
+
+def max_clusters(st, plan, lib=None):
+    """How many clusters of the stencil's ``plan`` the card holds at once
+    (``cudaOccupancyMaxActiveClusters``, through the ``_clusters`` entry
+    of ``lib``, default a library of the plan alone)."""
+    struct = _plan_struct(st, plan)
+    fn = _kernel_lib(lib or st.library([plan])) \
+        .egonet_fused_basic_block_stencil_clusters
+    fn.argtypes = [ctypes.c_int, type(struct), ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(plan.c, struct, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"cluster occupancy query failed: CUDA error "
+                           f"{err} (plan={plan})")
+    return out.value
+
+
+def direct(torch, mod, plan, lib=None):
+    """``launch(x, w1, b1, w2, b2) -> y``: the kernel of ``mod``
+    (``fused_block`` or ``fused_block_stencil``) with ``plan``, launched
+    from ``lib`` (default: the module's default library) through its plain
+    C entry point, on the current stream of x's device with that device
+    current.  The package reaches a kernel only through its operator; the
+    sweeps' plans are in no operator's table, so their launches are made
+    here, and the op's ``launches`` does not count them.  Raises for a
+    stencil plan the card holds no cluster of."""
+    lib = lib or mod.library()
+    if mod.__name__.endswith("stencil") and max_clusters(mod, plan, lib) < 1:
+        raise RuntimeError(f"the card holds no cluster of {plan.k} blocks "
+                           f"of {plan.smem} bytes (plan={plan})")
+    struct = _plan_struct(mod, plan)
+    fn = getattr(_kernel_lib(lib), "egonet_" + mod._LIB_NAME)
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [type(struct), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    # the operands last checked, held so that `is` cannot match a new
+    # tensor: a timing loop pays for the check once, not every launch
+    checked = [None] * 5
+
+    def launch(x, w1, b1, w2, b2):
+        c = plan.c
+        ops = (x, w1, b1, w2, b2)
+        if not all(a is b for a, b in zip(ops, checked)):
+            if not (x.is_cuda and x.dtype == torch.bfloat16
+                    and x.dim() == 4 and x.shape[3] == c
+                    and all(w.dtype == torch.bfloat16
+                            and w.numel() == 9 * c * c for w in (w1, w2))
+                    and all(b.dtype == torch.float32 and b.numel() == c
+                            for b in (b1, b2))
+                    and all(t.device == x.device and t.is_contiguous()
+                            for t in ops)):
+                raise ValueError(f"operands do not fit the plan at C={c}")
+            checked[:] = ops
+        n, h, w, _ = x.shape
+        y = torch.empty_like(x)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                     w2.data_ptr(), b2.data_ptr(), y.data_ptr(), n, h, w, c,
+                     struct, stream)
+        if err != 0:
+            raise RuntimeError(f"{mod._LIB_NAME} launch failed: CUDA error "
+                               f"{err} (N={n} H={h} W={w} plan={plan})")
+        return y
+    return launch
+
+
 def _tile_name(tile):
     return "x".join(map(str, tile))
 
@@ -450,10 +550,10 @@ def kernel_phase(torch, fb, sweep, sweep_lib):
     for c, h in W48_SHAPES:
         x, (w1, b1, w2, b2) = _block_inputs(torch, fb, g, c, h, BATCH)
 
-        def kernel(launcher=None):
-            if launcher is None:
+        def kernel(launch=None):
+            if launch is None:
                 return fb.fused_basic_block(x, w1, b1, w2, b2)
-            return fb._launch(x, w1, b1, w2, b2, *launcher)
+            return launch(x, w1, b1, w2, b2)
 
         def plain():
             return fb.fused_basic_block_reference(x, w1, b1, w2, b2)
@@ -469,9 +569,10 @@ def kernel_phase(torch, fb, sweep, sweep_lib):
         lib_y = library().permute(0, 2, 3, 1)
         torch.testing.assert_close(lib_y.float(), ref.float(), atol=0.25,
                                    rtol=5e-2)
-        alt = [(t, fb._launcher(plan, sweep_lib)) for t, plan in sweep[c]]
-        for _, launcher in alt:
-            y = kernel(launcher)
+        alt = [(t, direct(torch, fb, plan, sweep_lib))
+               for t, plan in sweep[c]]
+        for _, launch in alt:
+            y = kernel(launch)
             torch.cuda.synchronize()
             torch.testing.assert_close(y.float(), ref.float(), atol=5e-2,
                                        rtol=2e-2)
@@ -479,7 +580,7 @@ def kernel_phase(torch, fb, sweep, sweep_lib):
         # ms: the default plan's kernel launched directly (device time);
         # op_ms: through the wrapper and the C++ operator, whose host
         # dispatch can outlast a small launch
-        default = fb._default_launcher(c)
+        default = direct(torch, fb, fb.plan_for(c))
         row = {"shape": {"C": c, "H": h, "W": h, "B": BATCH},
                "tile": list(fb.tile_for(c)),
                "plan": dataclasses.asdict(fb.plan_for(c)),
@@ -612,7 +713,7 @@ def _plan_summary(st, plan, lib):
             "NB": plan.nb, "weights": "resident" if plan.resident
             else f"streamed, slabs of {plan.ks} x {plan.stages}",
             "warps": plan.warps, "smem": plan.smem,
-            "max_active_clusters": st.max_clusters(plan, lib)}
+            "max_active_clusters": max_clusters(st, plan, lib)}
 
 
 def stencil_kernel_phase(torch, fb, st, sweep, sweep_lib):
@@ -632,22 +733,22 @@ def stencil_kernel_phase(torch, fb, st, sweep, sweep_lib):
     for c, h in W48_SHAPES:
         x, (w1, b1, w2, b2) = _block_inputs(torch, fb, g, c, h, BATCH)
 
-        def kernel(launcher=None):
-            if launcher is None:
+        def kernel(launch=None):
+            if launch is None:
                 return st.fused_basic_block_stencil(x, w1, b1, w2, b2)
-            return st._launch(x, w1, b1, w2, b2, *launcher)
+            return launch(x, w1, b1, w2, b2)
 
         def plain():
             return st.fused_basic_block_reference(x, w1, b1, w2, b2)
 
-        def tiled(launcher=fb._default_launcher(c)):
-            return fb._launch(x, w1, b1, w2, b2, *launcher)
+        def tiled(launch=direct(torch, fb, fb.plan_for(c))):
+            return launch(x, w1, b1, w2, b2)
 
         library = _library_block(torch, x, w1, b1, w2, b2)
         ref = plain()
-        alt = [(p, st._launcher(p, sweep_lib)) for p in sweep[c]]
-        for launcher in [None] + [a for _, a in alt]:
-            y = kernel(launcher)
+        alt = [(p, direct(torch, st, p, sweep_lib)) for p in sweep[c]]
+        for launch in [None] + [a for _, a in alt]:
+            y = kernel(launch)
             torch.cuda.synchronize()
             torch.testing.assert_close(y.float(), ref.float(), atol=5e-2,
                                        rtol=2e-2)
@@ -656,7 +757,7 @@ def stencil_kernel_phase(torch, fb, st, sweep, sweep_lib):
         err = (y.float() - ref.float()).abs().max().item()
         assert torch.isfinite(y.float()).all()
         ops_ms, bytes_ms = _bound(c, h, h)
-        default = st._default_launcher(st.plan_for(c))
+        default = direct(torch, st, st.plan_for(c))
         row = {"shape": {"C": c, "H": h, "W": h, "B": BATCH},
                "plan": _plan_summary(st, st.plan_for(c), st.library()),
                "max_abs_err": err,
@@ -1691,18 +1792,18 @@ def kernel_ped_phase(torch, fb, st, tiled_sweep, tiled_lib, stencil_sweep,
         library_ms = _time_ms(torch, library)
         for name, mod, wrapper, alts in (
                 ("fused_basic_block", fb, fb.fused_basic_block,
-                 [(_tile_name(t), fb._launcher(p, tiled_lib))
+                 [(_tile_name(t), direct(torch, fb, p, tiled_lib))
                   for t, p in tiled_sweep[c]]),
                 ("fused_basic_block_stencil", st,
                  st.fused_basic_block_stencil,
-                 [(_plan_name(p), st._launcher(p, stencil_lib))
+                 [(_plan_name(p), direct(torch, st, p, stencil_lib))
                   for p in stencil_sweep[c]])):
-            def kernel(launcher=None, mod=mod, wrapper=wrapper):
-                if launcher is None:
+            def kernel(launch=None, wrapper=wrapper):
+                if launch is None:
                     return wrapper(x, w1, b1, w2, b2)
-                return mod._launch(x, w1, b1, w2, b2, *launcher)
-            for launcher in [None] + [a for _, a in alts]:
-                y = kernel(launcher)
+                return launch(x, w1, b1, w2, b2)
+            for launch in [None] + [a for _, a in alts]:
+                y = kernel(launch)
                 torch.cuda.synchronize()
                 torch.testing.assert_close(y.float(), ref.float(),
                                            atol=5e-2, rtol=2e-2)
@@ -1717,8 +1818,7 @@ def kernel_ped_phase(torch, fb, st, tiled_sweep, tiled_lib, stencil_sweep,
                     yo.float(), fb.fused_basic_block_reference(
                         xo, w1, b1, w2, b2).float(), atol=5e-2, rtol=2e-2)
             plan = mod.plan_for(c)
-            default = (fb._default_launcher(c) if mod is fb
-                       else st._default_launcher(plan))
+            default = direct(torch, mod, plan)
             row = {"shape": {"C": c, "H": h, "W": h, "B": BATCH},
                    "tile": list(mod.tile_for(c)),
                    "max_abs_err": (y.float() - ref.float()).abs().max()
@@ -2375,19 +2475,18 @@ def _op_overhead(torch, fb, n=500):
     wrapper (``op``: the Python wrapper and the C++ operator), through the
     C++ operator alone (``op_dispatch``: ``torch.ops.egonet.
     fused_basic_block.default``) and by a direct launch (``direct``:
-    ctypes).  ``host_us``: microseconds per call of the host's loop of
+    :func:`direct`, ctypes).  ``host_us``: microseconds per call of the host's loop of
     ``n`` calls, before the device is waited for (the launch queue holds
     them); ``wall_us``: per call up to the device's end (the kernel's
     own time bounds it from below)."""
     g = torch.Generator(device="cuda").manual_seed(5)
     x, (w1, b1, w2, b2) = _block_inputs(torch, fb, g, 48, 8, 1)
-    launcher = fb._default_launcher(48)
+    launch = direct(torch, fb, fb.plan_for(48))
     op = torch.ops.egonet.fused_basic_block.default
     out = {"host_us": {}, "wall_us": {}}
     for name, fn in (("op", lambda: fb.fused_basic_block(x, w1, b1, w2, b2)),
                      ("op_dispatch", lambda: op(x, w1, b1, w2, b2)),
-                     ("direct", lambda: fb._launch(x, w1, b1, w2, b2,
-                                                   *launcher))):
+                     ("direct", lambda: launch(x, w1, b1, w2, b2))):
         with torch.inference_mode():
             for _ in range(20):
                 fn()
@@ -2692,12 +2791,10 @@ def _gate_kernel_rows(torch, fb, st):
         for batch in (GATE_ODD_BATCH, BATCH):
             x, folded = _block_inputs(torch, fb, g, c, h, batch)
             ref = fb.fused_basic_block_reference(x, *folded)
-            for name, fn, launcher in (
-                    ("fused_basic_block", fb.fused_basic_block,
-                     lambda: fb._default_launcher(c)),
+            for name, fn, module in (
+                    ("fused_basic_block", fb.fused_basic_block, fb),
                     ("fused_basic_block_stencil",
-                     st.fused_basic_block_stencil,
-                     lambda: st._default_launcher(st.plan_for(c)))):
+                     st.fused_basic_block_stencil, st)):
                 y = fn(x, *folded)
                 torch.cuda.synchronize()
                 err = (y.float() - ref.float()).abs().max().item()
@@ -2705,14 +2802,12 @@ def _gate_kernel_rows(torch, fb, st):
                                            atol=5e-2, rtol=2e-2)
                 if batch != BATCH:
                     continue
-                module = fb if name == "fused_basic_block" else st
-                default = launcher()
+                default = direct(torch, module, module.plan_for(c))
                 ops_ms, bytes_ms = _bound(c, h, h)
                 rows[name].append({
                     "shape": {"C": c, "H": h, "W": h, "B": batch},
                     "max_abs_err": err,
-                    "ms": _time_ms(torch, lambda: module._launch(
-                        x, *folded, *default)),
+                    "ms": _time_ms(torch, lambda: default(x, *folded)),
                     "plain_ms": _time_ms(
                         torch, lambda: fb.fused_basic_block_reference(
                             x, *folded), iters=5),

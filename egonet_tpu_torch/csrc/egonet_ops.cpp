@@ -2,13 +2,16 @@
 //
 //   egonet::fused_basic_block(Tensor x, Tensor w1, Tensor b1, Tensor w2,
 //                             Tensor b2) -> Tensor
-//   egonet::fused_basic_block_stencil(<the same>) -> Tensor
+//   egonet::fused_basic_block_stencil(<the same>, int[]? plan=None)
+//                                     -> Tensor
 //   egonet::rigid_solve(Tensor kpts_3d) -> Tensor
 //   egonet::bn_act(Tensor x, Tensor scale, Tensor shift,
 //                  Tensor? residual=None, bool relu=False) -> Tensor
 //
 // The first two: y = relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2 + x)
-// on NHWC operands, batch norm folded (ops/fused_block.py).  The third: the
+// on NHWC operands, batch norm folded (ops/fused_block.py); the stencil's
+// plan, when given, picks the card's launch, not the function, so its CPU
+// and Meta kernels ignore it.  The third: the
 // facade's rigid stage, [N, P, 3] fp32 points -> [N, 6] (rx, ry, rz, tx,
 // ty, tz) (ops/rigid_solve.py, csrc/rigid_solve.cuh).  The fourth: an
 // inference batch norm's affine, an optional residual add and an optional
@@ -81,6 +84,18 @@ at::Tensor meta(const at::Tensor& x, const at::Tensor& w1,
                 const at::Tensor& b2) {
   egonet::check_contract(x, w1, b1, w2, b2, OP);
   return at::empty_like(x);
+}
+
+at::Tensor plain_stencil(const at::Tensor& x, const at::Tensor& w1,
+                         const at::Tensor& b1, const at::Tensor& w2,
+                         const at::Tensor& b2, at::OptionalIntArrayRef) {
+  return plain(x, w1, b1, w2, b2);
+}
+
+at::Tensor meta_stencil(const at::Tensor& x, const at::Tensor& w1,
+                        const at::Tensor& b1, const at::Tensor& w2,
+                        const at::Tensor& b2, at::OptionalIntArrayRef) {
+  return meta<egonet::kStencil>(x, w1, b1, w2, b2);
 }
 
 at::Tensor rigid_solve_cpu(const at::Tensor& kpts) {
@@ -175,7 +190,7 @@ TORCH_LIBRARY(egonet, m) {
       "Tensor b2) -> Tensor");
   m.def(
       "fused_basic_block_stencil(Tensor x, Tensor w1, Tensor b1, Tensor w2, "
-      "Tensor b2) -> Tensor");
+      "Tensor b2, int[]? plan=None) -> Tensor");
   m.def("rigid_solve(Tensor kpts_3d) -> Tensor");
   m.def(
       "bn_act(Tensor x, Tensor scale, Tensor shift, Tensor? residual=None, "
@@ -184,14 +199,14 @@ TORCH_LIBRARY(egonet, m) {
 
 TORCH_LIBRARY_IMPL(egonet, CPU, m) {
   m.impl("fused_basic_block", &plain);
-  m.impl("fused_basic_block_stencil", &plain);
+  m.impl("fused_basic_block_stencil", &plain_stencil);
   m.impl("rigid_solve", &rigid_solve_cpu);
   m.impl("bn_act", &bn_act_cpu);
 }
 
 TORCH_LIBRARY_IMPL(egonet, Meta, m) {
   m.impl("fused_basic_block", &meta<egonet::kTiled>);
-  m.impl("fused_basic_block_stencil", &meta<egonet::kStencil>);
+  m.impl("fused_basic_block_stencil", &meta_stencil);
   m.impl("rigid_solve", &rigid_solve_meta);
   m.impl("bn_act", &bn_act_meta);
 }

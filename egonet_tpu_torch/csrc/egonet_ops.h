@@ -11,9 +11,9 @@
 
 extern "C" {
 // Kernel launches of op `op` (kTiled, kStencil, kRigid or kBnAct), counted by
-// libegonet_ops.so where a kernel launches: the CUDA kernels of
-// egonet_ops_cuda.cpp and the direct launches of ops/fused_block*.py
-// (ctypes), and nowhere else.
+// libegonet_ops.so where a kernel launches, in the CUDA kernels of
+// egonet_ops_cuda.cpp, and nowhere else.  ops/_build.py reads and sets them
+// through ctypes.
 int64_t egonet_launches(int op);
 void egonet_set_launches(int op, int64_t n);
 void egonet_add_launch(int op);
@@ -31,11 +31,11 @@ enum Op : int { kTiled = 0, kStencil = 1, kRigid = 2, kBnAct = 3, kOps = 4 };
 #endif
 constexpr int64_t kStencilMaxC = EGONET_STENCIL_MAX_C;
 
-// The checks of ops/fused_block.py (_check_shapes), and for the stencil
-// its C <= 384, in the same order and with the same messages: they need
-// no data, so the Meta kernels run them under torch.export, where sizes
-// may be symbolic (a comparison guards on them).  ValueError, as the
-// Python checks raised.
+// The fused blocks' operand contract, and for the stencil its C <= 384,
+// run by the Meta and CUDA kernels (the CPU kernel, the plain version, also
+// takes fp32 operands): the checks need no data, so the Meta kernels run
+// them under torch.export, where sizes may be symbolic (a comparison guards
+// on them).  ValueError, as the wrappers' callers expect.
 inline void check_contract(const at::Tensor& x, const at::Tensor& w1,
                            const at::Tensor& b1, const at::Tensor& w2,
                            const at::Tensor& b2, Op op) {

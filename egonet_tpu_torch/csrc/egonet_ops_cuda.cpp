@@ -1,8 +1,9 @@
 // The CUDA kernels of the operators whose schemas, CPU and Meta kernels are
 // egonet_ops.cpp's.  egonet::fused_basic_block and
 // egonet::fused_basic_block_stencil: check the operands, take the width's
-// default plan and launch the Hopper kernel of fused_basic_block.cu /
-// fused_basic_block_stencil.cu through its plain C entry point.
+// default plan (the stencil: the plan it is given, if any) and launch the
+// Hopper kernel of fused_basic_block.cu / fused_basic_block_stencil.cu
+// through its plain C entry point.
 // egonet::rigid_solve: check the operand and launch rigid_solve.cu's one
 // kernel over the batch.  egonet::bn_act: check the operands and launch
 // bn_act.cu's one pass over the tensor.  Each on the current stream of its
@@ -21,7 +22,8 @@
 // them into this library's prelude as X-macros, the plan structs' fields
 // (EGONET_*_FIELDS, the kernels' Plan / StencilPlan in the same order) and
 // every width's default plan (EGONET_*_PLANS), and a changed table
-// rebuilds the library.
+// rebuilds the library.  A plan given to the stencil op comes as its fields
+// in that order (ops/fused_block_stencil.py, _PLAN_FIELDS).
 
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
@@ -38,6 +40,7 @@
 #include <sstream>
 #include <string>
 #include <utility>
+#include <vector>
 
 #include "egonet_ops.h"
 
@@ -53,6 +56,9 @@ struct StencilPlan {
   EGONET_STENCIL_FIELDS(EGONET_FIELD)
 };
 #undef EGONET_FIELD
+#define EGONET_COUNT(f) +1
+constexpr size_t kStencilFields = 0 EGONET_STENCIL_FIELDS(EGONET_COUNT);
+#undef EGONET_COUNT
 
 extern "C" {
 // fused_basic_block.cu / fused_basic_block_stencil.cu: 0 or a cudaError_t
@@ -114,6 +120,22 @@ std::string describe(const StencilPlan& p) {
   return s.str();
 }
 
+// The stencil's plan: the fields `given`, else the width's default.
+StencilPlan stencil_plan(int64_t c, at::OptionalIntArrayRef given) {
+  if (!given.has_value()) {
+    return plan_for(kStencil, c, "fused_basic_block_stencil");
+  }
+  TORCH_CHECK_VALUE(given->size() == kStencilFields,
+                    "fused_basic_block_stencil: a plan has ", kStencilFields,
+                    " fields (_PLAN_FIELDS), got ", given->size());
+  StencilPlan p;
+  const int64_t* f = given->data();
+#define EGONET_SET(name) p.name = int(*f++);
+  EGONET_STENCIL_FIELDS(EGONET_SET)
+#undef EGONET_SET
+  return p;
+}
+
 // The error's text, as torch's CUDA runtime names it.
 std::string cuda_error(int err) {
   try {
@@ -127,7 +149,7 @@ std::string cuda_error(int err) {
   return "no CUDA error";
 }
 
-// _check of ops/fused_block.py: the contract, then 32-byte alignment.
+// The contract, then 32-byte alignment.
 void check(const at::Tensor& x, const at::Tensor& w1, const at::Tensor& b1,
            const at::Tensor& w2, const at::Tensor& b2, egonet::Op op) {
   egonet::check_contract(x, w1, b1, w2, b2, op);
@@ -137,13 +159,17 @@ void check(const at::Tensor& x, const at::Tensor& w1, const at::Tensor& b1,
   }
 }
 
-// The stencil's cluster-occupancy check, once per device and plan (width):
-// a launch of a plan the card holds no cluster of would fail.
+// The stencil's cluster-occupancy check, once per device and plan: a
+// launch of a plan the card holds no cluster of would fail.
 void check_clusters(int device, int64_t c, const StencilPlan& p) {
   static std::mutex mu;
-  static std::set<std::pair<int, int64_t>> held;
+  static std::set<std::pair<int, std::vector<int>>> held;
+#define EGONET_VALUE(f) p.f,
+  const std::pair<int, std::vector<int>> key{
+      device, {EGONET_STENCIL_FIELDS(EGONET_VALUE)}};
+#undef EGONET_VALUE
   const std::lock_guard<std::mutex> lock(mu);
-  if (held.count({device, c})) return;
+  if (held.count(key)) return;
   int clusters = 0;
   const int err =
       egonet_fused_basic_block_stencil_clusters(int(c), p, &clusters);
@@ -151,13 +177,13 @@ void check_clusters(int device, int64_t c, const StencilPlan& p) {
               " (C=", c, describe(p), ")");
   TORCH_CHECK(clusters >= 1, "the card holds no cluster of ", p.k,
               " blocks of ", p.smem, " bytes (C=", c, describe(p), ")");
-  held.insert({device, c});
+  held.insert(key);
 }
 
 template <egonet::Op OP>
 at::Tensor fused_cuda(const at::Tensor& x, const at::Tensor& w1,
                       const at::Tensor& b1, const at::Tensor& w2,
-                      const at::Tensor& b2) {
+                      const at::Tensor& b2, at::OptionalIntArrayRef given) {
   const char* name =
       OP == egonet::kTiled ? "fused_basic_block" : "fused_basic_block_stencil";
   check(x, w1, b1, w2, b2, OP);
@@ -175,7 +201,7 @@ at::Tensor fused_cuda(const at::Tensor& x, const at::Tensor& w1,
                                    n, h, w, c, p, stream);
     if (err != 0) plan = describe(p);
   } else {
-    const StencilPlan& p = plan_for(kStencil, c, name);
+    const StencilPlan p = stencil_plan(c, given);
     check_clusters(x.device().index(), c, p);
     err = egonet_fused_basic_block_stencil(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
@@ -186,6 +212,12 @@ at::Tensor fused_cuda(const at::Tensor& x, const at::Tensor& w1,
               " H=", h, " W=", w, " C=", c, " plan:", plan, ")");
   egonet_add_launch(OP);
   return y;
+}
+
+at::Tensor tiled_cuda(const at::Tensor& x, const at::Tensor& w1,
+                      const at::Tensor& b1, const at::Tensor& w2,
+                      const at::Tensor& b2) {
+  return fused_cuda<egonet::kTiled>(x, w1, b1, w2, b2, std::nullopt);
 }
 
 at::Tensor rigid_solve_cuda(const at::Tensor& kpts) {
@@ -231,7 +263,7 @@ at::Tensor bn_act_cuda(const at::Tensor& x, const at::Tensor& scale,
 }  // namespace
 
 TORCH_LIBRARY_IMPL(egonet, CUDA, m) {
-  m.impl("fused_basic_block", &fused_cuda<egonet::kTiled>);
+  m.impl("fused_basic_block", &tiled_cuda);
   m.impl("fused_basic_block_stencil", &fused_cuda<egonet::kStencil>);
   m.impl("rigid_solve", &rigid_solve_cuda);
   m.impl("bn_act", &bn_act_cuda);

@@ -68,8 +68,8 @@
 #include "mma_sm90.cuh"
 
 // The launch plan, computed by ops/fused_block.py (plan_for) and passed by
-// value; its ctypes mirror there (_PlanStruct) has the same fields in the
-// same order.
+// value; the CUDA operator's copy (csrc/egonet_ops_cuda.cpp, TiledPlan,
+// from _PLAN_FIELDS there) has the same fields in the same order.
 struct Plan {
   int th, tw, nb;   // output tile rows, columns; images per block
   int cp;           // shared row pitch in channels (C + 8)

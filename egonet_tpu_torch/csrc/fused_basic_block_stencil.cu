@@ -96,8 +96,9 @@
 #include "mma_sm90.cuh"
 
 // The launch plan, computed by ops/fused_block_stencil.py (plan_for) and
-// passed by value; its ctypes mirror there (_PlanStruct) has the same
-// fields in the same order.
+// passed by value; the CUDA operator's copy (csrc/egonet_ops_cuda.cpp,
+// StencilPlan, from _PLAN_FIELDS there) has the same fields in the same
+// order.
 struct StencilPlan {
   int tw, rh, nb;      // output columns per tile; rows per step; images
                        // per cluster

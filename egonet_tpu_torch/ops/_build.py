@@ -6,8 +6,9 @@ shared header of its kind or its prelude is newer than the library) into
 ``egonet_tpu_torch/_build/`` (listed in ``.gitignore``):
 
 * a kernel, ``csrc/<name>.cu``: compiled by ``nvcc`` for ``sm_90a`` into a
-  shared library with a plain C interface, loaded with ``ctypes``.  Nothing
-  there includes PyTorch's headers, so a build takes seconds.
+  shared library with a plain C interface, which the CUDA operators link
+  (the port launches a kernel only through its operator).  Nothing there
+  includes PyTorch's headers, so a build takes seconds.
 * the operators, ``csrc/egonet_ops.cpp`` (``libegonet_ops.so``: the schemas
   of ``egonet::fused_basic_block``, ``egonet::fused_basic_block_stencil``,
   ``egonet::rigid_solve`` and ``egonet::bn_act``, their CPU and Meta
@@ -25,8 +26,9 @@ or as ``(name, source, prelude)``: ``csrc/<source>`` (``.cu`` unless the
 source names its extension) compiled with the C text ``prelude`` included
 first (written to ``_build/<name>.inc``; a changed prelude rebuilds the
 library).  That is how a kernel's wrapper lists, from Python, the template
-instantiations its launch plans need, and how the CUDA operators get each
-width's default plan (:func:`_plans_prelude`).
+instantiations its launch plans need (``library(plans)``; ``chip_smoke.py``
+builds its tile sweeps' libraries so and launches them itself), and how
+the CUDA operators get each width's default plan (:func:`_plans_prelude`).
 
 Every :func:`build` holds a file lock in ``_build/`` (``fcntl``), so
 processes that need a library at once (pytest-xdist workers) build it once:
@@ -61,13 +63,12 @@ _LINKS = {OPS: (), OPS_CUDA: (OPS, "fused_basic_block",
 # the ops' numbers in the launch counts (csrc/egonet_ops.h, egonet::Op)
 TILED, STENCIL, RIGID, BN_ACT = 0, 1, 2, 3
 
-_LIBS: dict = {}
 # device types whose operator libraries are loaded
 _OPS_LOADED: set = set()
 _COUNTS = None
-# held while a library is built or loaded and while a wrapper fills its
-# launcher cache: the first call may come from any thread (a server's
-# dispatch thread), and two builds of one library would race on its files
+# held while the operator libraries are built and loaded: the first call
+# may come from any thread (a server's dispatch thread), and two builds of
+# one library would race on its files
 LOCK = threading.RLock()
 # per-library build record: {"seconds": float, "log": str} (empty when
 # the library was already up to date)
@@ -247,19 +248,6 @@ def build(libs) -> None:
             raise RuntimeError("\n".join(failed))
 
 
-def load(lib) -> ctypes.CDLL:
-    """The loaded library ``lib`` (a name or a (name, source, prelude)
-    tuple), built first if needed."""
-    name = _spec(lib)[0]
-    with LOCK:
-        loaded = _LIBS.get(name)
-        if loaded is None:
-            build([lib])
-            loaded = ctypes.CDLL(_paths(name)[1])
-            _LIBS[name] = loaded
-    return loaded
-
-
 # ---------------------------------------------------------------------------
 # the operators
 # ---------------------------------------------------------------------------
@@ -331,21 +319,18 @@ def load_ops(device_type: str = "cpu") -> None:
         if not all(_loaded_copy(n) for n in names):
             build(ops_libs(device_type))
         for name in names:
-            path = _loaded_copy(name)
-            if path is None:
-                path = _paths(name, name + ".cpp")[1]
-                torch.ops.load_library(path)
-            _LIBS.setdefault(name, ctypes.CDLL(path))
+            if _loaded_copy(name) is None:
+                torch.ops.load_library(_paths(name, name + ".cpp")[1])
         _OPS_LOADED.add(device_type)
 
 
 def _counts() -> ctypes.CDLL:
-    """``libegonet_ops.so`` with its count functions typed (once: a direct
-    launch calls it every time)."""
+    """The loaded ``libegonet_ops.so`` (ctypes) with its count functions
+    typed, once."""
     global _COUNTS
     if _COUNTS is None:
         load_ops("cpu")
-        lib = _LIBS[OPS]
+        lib = ctypes.CDLL(_loaded_copy(OPS))
         lib.egonet_launches.restype = ctypes.c_int64
         lib.egonet_set_launches.argtypes = [ctypes.c_int, ctypes.c_int64]
         _COUNTS = lib
@@ -354,18 +339,13 @@ def _counts() -> ctypes.CDLL:
 
 def launches(op: int) -> int:
     """Kernel launches of op ``op`` (:data:`TILED`, :data:`STENCIL`,
-    :data:`RIGID`, :data:`BN_ACT`) since the count was last set, through the operator or
-    direct."""
+    :data:`RIGID`, :data:`BN_ACT`) since the count was last set: the
+    operator's CUDA kernel counts each launch."""
     return int(_counts().egonet_launches(op))
 
 
 def set_launches(op: int, n: int) -> None:
     _counts().egonet_set_launches(op, n)
-
-
-def add_launch(op: int) -> None:
-    """Count one direct launch (``_launch`` of ops/fused_block*.py)."""
-    _counts().egonet_add_launch(op)
 
 
 class CountedWrapper:

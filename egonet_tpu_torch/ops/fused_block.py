@@ -35,21 +35,20 @@ plans it serves (:func:`library`), listed here and nowhere else.
 
 The kernel is the operator ``egonet::fused_basic_block``, registered once,
 in C++ (``csrc/egonet_ops.cpp``: schema, CPU kernel = the plain version in
-ATen, Meta kernel = the contract for ``torch.export``;
+ATen, Meta kernel = the operand contract for ``torch.export``;
 ``csrc/egonet_ops_cuda.cpp``: the CUDA kernel, which checks the operands and
 launches each width's default plan, generated from :func:`plan_for`), so an
 exported program holds one node per block and runs from torch and the
-libraries alone.  The wrapper :func:`fused_basic_block` loads them at first
-use (``_build.load_ops``) and calls the op: the plain version only for a
-tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
-:func:`_launch` launches another plan directly (ctypes; the tile sweeps).
-``fused_basic_block.launches`` counts kernel launches, through the op or
-direct (and nothing else).
+libraries alone.  The operator is the one way to the card: the wrapper
+:func:`fused_basic_block` loads the libraries at first use
+(``_build.load_ops``) and calls it, which runs the plain version only for a
+tensor on the CPU and for a CUDA tensor launches the kernel or raises.
+``fused_basic_block.launches`` counts the op's kernel launches (and nothing
+else).
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import zlib
 
@@ -78,8 +77,6 @@ _MAX_C = 64 * _WARPS          # widest channel count 8 warps cover
 _PLAN_LIMITS = {3: (6, (48, 96, 144)), 1: (2, (48,)), 2: (2, (48,)),
                 4: (2, (48,))}
 _PLANS: dict = {}
-# channel width -> (plan, its _PlanStruct, entry point) of the default path
-_LAUNCHERS: dict = {}
 
 
 # ---------------------------------------------------------------------------
@@ -185,10 +182,6 @@ class TilePlan:
 _PLAN_FIELDS = [f.name for f in dataclasses.fields(TilePlan)][1:]
 
 
-class _PlanStruct(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_int) for name in _PLAN_FIELDS]
-
-
 def _nt_for(c: int) -> int:
     """N tiles per warp: 3 where the C/16 tiles split into groups of 3 over
     at most 8 warps (every W48 width), else 4, 2 or 1 likewise, else the
@@ -279,58 +272,9 @@ def library(plans=None):
     return name, _LIB_NAME, prelude
 
 
-def _launcher(plan: TilePlan, lib):
-    """(plan, its ctypes struct, the entry point of ``lib``): what
-    :func:`_launch` takes."""
-    fn = _build.load(lib).egonet_fused_basic_block
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                   + [_PlanStruct, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return plan, _PlanStruct(*(getattr(plan, f) for f in _PLAN_FIELDS)), fn
-
-
 def tile_for(c: int):
     """The (TH, TW, NB, KS) tile the kernel uses at channel width ``c``."""
     return _TILES.get(c, (8, 8, 1, 48))
-
-
-def _check_shapes(x, w1, b1, w2, b2):
-    """The operand checks that need no data, for the stencil's direct
-    ``tile=`` launches (the operators' Meta and CUDA kernels run the same
-    checks in C++, ``csrc/egonet_ops.h``)."""
-    if x.dtype != torch.bfloat16 or x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("x must be a contiguous NHWC bf16 tensor, got "
-                         f"{x.dtype} {tuple(x.shape)}")
-    c = x.shape[3]
-    if c % 16:
-        raise ValueError(f"channel width {c} is not a multiple of 16")
-    for name, w in (("w1", w1), ("w2", w2)):
-        if (w.dtype != torch.bfloat16 or w.numel() != 9 * c * c
-                or w.shape[0] != c or not w.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous bf16 [C, 3, 3, C]")
-    for name, b in (("b1", b1), ("b2", b2)):
-        if b.dtype != torch.float32 or b.numel() != c or not b.is_contiguous():
-            raise ValueError(f"{name} must be contiguous fp32 [C]")
-    for t in (w1, b1, w2, b2):
-        if t.device != x.device:
-            raise ValueError("all operands must be on x's device")
-
-
-def _check(x, w1, b1, w2, b2):
-    _check_shapes(x, w1, b1, w2, b2)
-    if any(t.data_ptr() % 32 for t in (x, w1, b1, w2, b2)):
-        raise ValueError("operands must be 32-byte aligned")
-
-
-def _default_launcher(c: int):
-    """:func:`_launcher` of width ``c``'s default plan in the default
-    library, built once: the lock keeps two threads (a server's dispatch
-    thread and its caller) from building or caching it twice."""
-    with _build.LOCK:
-        launcher = _LAUNCHERS.get(c)
-        if launcher is None:
-            launcher = _LAUNCHERS[c] = _launcher(plan_for(c), library())
-    return launcher
 
 
 @_build.counted(_build.TILED)
@@ -345,21 +289,3 @@ def fused_basic_block(x, w1, b1, w2, b2) -> torch.Tensor:
     ``torch.export`` the op is one graph node."""
     _build.load_ops(x.device.type)
     return torch.ops.egonet.fused_basic_block.default(x, w1, b1, w2, b2)
-
-
-def _launch(x, w1, b1, w2, b2, plan, struct, fn) -> torch.Tensor:
-    """Launch the kernel on checked CUDA operands with ``plan`` (its
-    ``struct``) through ``fn``, a library's entry point, on the calling
-    thread's current stream of x's device, with that device current (the
-    kernel's shared-memory attribute is set per device)."""
-    n, h, w, c = x.shape
-    y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                 b2.data_ptr(), y.data_ptr(), n, h, w, c, struct, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_basic_block launch failed: CUDA error {err}"
-                           f" (N={n} H={h} W={w} C={c} plan={plan})")
-    _build.add_launch(_build.TILED)
-    return y

@@ -28,21 +28,21 @@ variants of the plans it serves (:func:`library`).
 
 The plain version is ``fused_block.fused_basic_block_reference``, which
 computes the identical function; it is re-exported here as
-:func:`fused_basic_block_reference`.  The default plan's kernel is the
-operator ``egonet::fused_basic_block_stencil``, registered in C++ beside the
-tiled kernel's (``csrc/egonet_ops.cpp``: schema, CPU kernel = the plain
-version, Meta kernel; ``csrc/egonet_ops_cuda.cpp``: the CUDA kernel, which
-asks the card once per device and plan whether it holds a cluster, then
-launches).  The wrapper takes the plain version only for a tensor on the
-CPU; for a CUDA tensor it launches the kernel or raises.  A ``tile=``
-override launches directly (ctypes).
-``fused_basic_block_stencil.launches`` counts kernel launches, through the
-op or direct (and nothing else).
+:func:`fused_basic_block_reference`.  The kernel is the operator
+``egonet::fused_basic_block_stencil``, registered in C++ beside the tiled
+kernel's (``csrc/egonet_ops.cpp``: schema, CPU kernel = the plain version,
+Meta kernel, both ignoring a plan; ``csrc/egonet_ops_cuda.cpp``: the CUDA
+kernel, which launches the plan it is given, as its ``_PLAN_FIELDS``, or
+the width's default, after asking the card once per device and plan
+whether it holds a cluster).  The operator is the one way to the card: the
+wrapper takes the plain version only for a tensor on the CPU; for a CUDA
+tensor it launches the kernel or raises.  A ``tile=`` override is passed
+to the operator as its plan.  ``fused_basic_block_stencil.launches`` counts
+the op's kernel launches (and nothing else).
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import os
 import zlib
@@ -52,7 +52,6 @@ import torch
 
 from egonet_tpu_torch.ops import _build
 from egonet_tpu_torch.ops.fused_block import (_SMEM_LIMIT, _align128, _cdiv,
-                                              _check,
                                               fused_basic_block_reference,
                                               pack_block_weights)
 
@@ -73,8 +72,6 @@ _MAX_CLUSTER = 8      # portable cluster size
 _MAX_ACC = 24         # accumulator tiles (MT1 or MT2) x NT a warp may hold
 _SLAB_DEPTHS = (96, 64, 48, 32, 16)   # streamed K slabs tried, widest first
 _PLANS: dict = {}
-# plan -> (plan, its _PlanStruct, entry point of the default library)
-_LAUNCHERS: dict = {}
 
 
 def pack_stencil_weights(w1, bn1, w2, bn2, eps: float = 1e-5):
@@ -143,10 +140,6 @@ class StencilPlan:
 
 
 _PLAN_FIELDS = [f.name for f in dataclasses.fields(StencilPlan)][1:]
-
-
-class _PlanStruct(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_int) for name in _PLAN_FIELDS]
 
 
 def _default_tile(c: int):
@@ -300,65 +293,17 @@ def library(plans=None):
     return name, _LIB_NAME, prelude
 
 
-def _entry(lib, symbol):
-    fn = getattr(_build.load(lib), symbol)
-    if symbol == "egonet_fused_basic_block_stencil":
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                       + [_PlanStruct, ctypes.c_void_p])
-    else:
-        fn.argtypes = [ctypes.c_int, _PlanStruct,
-                       ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def max_clusters(plan: StencilPlan, lib=None) -> int:
-    """How many clusters of ``plan`` the card holds at once
-    (``cudaOccupancyMaxActiveClusters``); raises on a CUDA error."""
-    out = ctypes.c_int(0)
-    err = _entry(lib or library([plan]),
-                 "egonet_fused_basic_block_stencil_clusters")(
-        plan.c, _struct(plan), ctypes.byref(out))
-    if err != 0:
-        raise RuntimeError(f"cluster occupancy query failed: CUDA error "
-                           f"{err} (plan={plan})")
-    return out.value
-
-
-def _struct(plan: StencilPlan) -> _PlanStruct:
-    return _PlanStruct(*(getattr(plan, f) for f in _PLAN_FIELDS))
-
-
-def _launcher(plan: StencilPlan, lib):
-    """(plan, its ctypes struct, the entry point of ``lib``): what
-    :func:`_launch` takes.  Raises if the card cannot hold one cluster of
-    the plan (a launch would fail)."""
-    if max_clusters(plan, lib) < 1:
-        raise RuntimeError(f"the card holds no cluster of {plan.k} blocks "
-                           f"of {plan.smem} bytes (plan={plan})")
-    return plan, _struct(plan), _entry(lib, "egonet_fused_basic_block_stencil")
-
-
-def _default_launcher(plan: StencilPlan):
-    """:func:`_launcher` of ``plan`` in the default library, cached per
-    plan (under ``_build.LOCK``: the first call may come from any thread).
-    Raises ValueError, before touching the card, if the default library
-    holds no kernel variant for the plan."""
-    with _build.LOCK:
-        launcher = _LAUNCHERS.get(plan)
-        if launcher is None:
-            if _variant(plan) not in {_variant(p) for p in _default_plans()}:
-                raise ValueError(
-                    f"the stencil library holds no kernel for tile "
-                    f"{plan.tile} at C={plan.c}: its (MT1, MT2, NT, KC, "
-                    f"STREAM) = {_variant(plan)} is no default plan's")
-            launcher = _LAUNCHERS[plan] = _launcher(plan, library())
-    return launcher
-
-
-def _check_width(c: int):
-    if c > _MAX_C:
-        raise ValueError(f"the stencil kernel takes C <= {_MAX_C}, got {c}")
+def _plan_fields(c: int, tile) -> list:
+    """The fields of ``tile``'s plan at width ``c``, as the operator takes
+    them.  Raises ValueError if the default library holds no kernel variant
+    for the plan (a launch would fail)."""
+    plan = plan_for(c, tile)
+    if _variant(plan) not in {_variant(p) for p in _default_plans()}:
+        raise ValueError(
+            f"the stencil library holds no kernel for tile {plan.tile} at "
+            f"C={c}: its (MT1, MT2, NT, KC, STREAM) = {_variant(plan)} is no "
+            "default plan's")
+    return [getattr(plan, f) for f in _PLAN_FIELDS]
 
 
 @_build.counted(_build.STENCIL)
@@ -367,48 +312,17 @@ def fused_basic_block_stencil(x, w1, b1, w2, b2, tile=None) -> torch.Tensor:
     row streaming.
 
     x [N, H, W, C] bf16 contiguous, C <= 384; w1, w2 [C, 3, 3, C] bf16
-    (folded, tap-major); b1, b2 [C] fp32.  With the default plan it calls
-    the operator ``egonet::fused_basic_block_stencil``: a CPU tensor goes
-    through the plain version; a CUDA tensor launches the kernel on the
-    current stream of x's device or raises.  ``tile`` overrides
-    :func:`tile_for` (a full tile, or (TW, NB) with the rest of the
-    default) with a plan whose kernel variant the default library holds,
-    launched directly (not through the op); another raises."""
-    if tile is None or x.device.type == "cpu":
-        _build.load_ops(x.device.type)
-        return torch.ops.egonet.fused_basic_block_stencil.default(
-            x, w1, b1, w2, b2)
-    return _op_cuda(x, w1, b1, w2, b2, tile)
-
-
-def _op_cuda(x, w1, b1, w2, b2, tile=None):
-    """A ``tile`` override's launch, under x's device: the launcher's
-    cluster-occupancy query and the launch act on the card that holds the
-    operands, not on the thread's current one."""
-    with torch.cuda.device(x.device):
-        _check(x, w1, b1, w2, b2)
-        _check_width(x.shape[3])
-        return _launch(x, w1, b1, w2, b2,
-                       *_default_launcher(plan_for(x.shape[3], tile)))
-
-
-def _launch(x, w1, b1, w2, b2, plan, struct, fn) -> torch.Tensor:
-    """Launch the kernel on checked CUDA operands with ``plan`` (its
-    ``struct``) through ``fn``, a library's entry point, on the calling
-    thread's current stream of x's device, with that device current (the
-    kernel's shared-memory attribute is set per device)."""
-    n, h, w, c = x.shape
-    y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                 b2.data_ptr(), y.data_ptr(), n, h, w, c, struct, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_basic_block_stencil launch failed: CUDA error {err} "
-            f"(N={n} H={h} W={w} C={c} plan={plan})")
-    _build.add_launch(_build.STENCIL)
-    return y
+    (folded, tap-major); b1, b2 [C] fp32.  Calls the operator
+    ``egonet::fused_basic_block_stencil``: a CPU tensor goes through the
+    plain version; a CUDA tensor launches the kernel on the current stream
+    of x's device or raises.  ``tile`` overrides :func:`tile_for` (a full
+    tile, or (TW, NB) with the rest of the default) with a plan whose
+    kernel variant the default library holds, passed to the operator;
+    another raises ValueError before the operator is called."""
+    plan = None if tile is None else _plan_fields(x.shape[3], tile)
+    _build.load_ops(x.device.type)
+    return torch.ops.egonet.fused_basic_block_stencil.default(
+        x, w1, b1, w2, b2, plan)
 
 
 # ---------------------------------------------------------------------------

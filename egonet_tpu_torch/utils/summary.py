@@ -4,8 +4,8 @@
 FLOPs are counted by ``torch.utils.flop_counter.FlopCounterMode`` (2 per
 multiply-add of convolutions, transposed convolutions and matrix
 products) with every fused BasicBlock on its plain version: the fused
-kernels are ctypes launches the counter cannot see, and the plain version
-does the same work.  The
+kernels are custom operators the counter cannot count, and the plain
+version does the same work.  The
 per-layer table is the reference's ``get_model_summary`` table
 (``libs/common/utils.py:35-147``): the heatmap models run their layers
 through ``F.conv2d`` / ``F.conv_transpose2d`` / ``F.linear`` on their

@@ -3,8 +3,9 @@ built by ``ops/_build.py`` with the host's ``c++``), on the CPU.
 
 The library is built once per test run (``_build.load_ops``; pytest-xdist
 workers share the build through its file lock).  Held here: the two schema
-strings (those the Python registration of earlier trees gave, so their
-``.pt2`` files still load); each CPU kernel against
+strings (those the Python registration of earlier trees gave, the stencil's
+with its optional plan after them, so their ``.pt2`` files still load);
+each CPU kernel against
 ``fused_basic_block_reference`` bit for bit (same ATen ops in the same
 order); ``torch.library.opcheck``; the Meta kernels against the contract;
 one launch count per op; the build's file lock, its failures and its
@@ -35,8 +36,9 @@ torch.set_num_threads(2)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 OPS = ("fused_basic_block", "fused_basic_block_stencil")
-SCHEMA = ("egonet::{}(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2)"
-          " -> Tensor")
+SCHEMA = ("egonet::{}(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2"
+          "{}) -> Tensor")
+PLAN_ARG = {OPS[0]: "", OPS[1]: ", int[]? plan=None"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -56,7 +58,7 @@ def _args(rng, n, h, w, c, dtype=torch.bfloat16):
 @pytest.mark.parametrize("op", OPS)
 def test_schema(op):
     assert str(getattr(torch.ops.egonet, op).default._schema) == \
-        SCHEMA.format(op)
+        SCHEMA.format(op, PLAN_ARG[op])
 
 
 @pytest.mark.parametrize("op", OPS)
@@ -133,19 +135,40 @@ def test_meta_kernel_shapes_the_output(op):
     assert y.shape == x.shape and y.dtype == x.dtype and y.is_meta
 
 
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_stencil_plan_picks_no_function_off_the_card(device):
+    """A plan given to the stencil operator (its fields, as the wrapper's
+    ``tile=`` passes them) changes nothing off the card: the CPU kernel is
+    the plain version bit for bit, the Meta kernel the contract's shape and
+    dtype (and its checks), and opcheck holds the schema with the plan."""
+    args = _args(np.random.RandomState(3), 2, 5, 9, 48)
+    plan = st.plan_for(48, (32, 1))
+    fields = [getattr(plan, f) for f in st._PLAN_FIELDS]
+    op = torch.ops.egonet.fused_basic_block_stencil.default
+    args = tuple(t.to(device) for t in args)
+    y = op(*args, fields)
+    assert y.shape == args[0].shape and y.dtype == torch.bfloat16
+    if device == "cpu":
+        assert torch.equal(y, fb.fused_basic_block_reference(*args))
+        torch.library.opcheck(op, args, {"plan": fields})
+    else:
+        assert y.is_meta
+        with pytest.raises(ValueError, match="x must be"):
+            op(args[0].float(), *args[1:], fields)
+
+
 @pytest.mark.parametrize("wrapper,op", [(fb.fused_basic_block, _build.TILED),
                                         (st.fused_basic_block_stencil,
                                          _build.STENCIL)])
 def test_one_launch_count_per_op(wrapper, op):
     """The wrapper's ``launches`` is the C++ count: set through either
-    side, read through either; a direct launch adds to it; the two ops'
-    counts are apart."""
+    side, read through either; the two ops' counts are apart."""
     other = _build.STENCIL if op == _build.TILED else _build.TILED
     saved, saved_other = _build.launches(op), _build.launches(other)
     try:
         wrapper.launches = 7
         assert _build.launches(op) == 7
-        _build.add_launch(op)
+        _build.set_launches(op, 8)
         assert wrapper.launches == 8
         _build.set_launches(other, 0)
         assert _build.launches(other) == 0 and wrapper.launches == 8
@@ -295,7 +318,7 @@ def _parent_schema_pt2(path):
 
 def test_a_pt2_of_the_earlier_schema_loads(rng, tmp_path):
     path = tmp_path / "old.pt2"
-    assert _parent_schema_pt2(path) == SCHEMA.format(OPS[0])
+    assert _parent_schema_pt2(path) == SCHEMA.format(OPS[0], "")
     program = torch.export.load(str(path))
     args = _args(rng, 2, 5, 6, 16)
     with torch.inference_mode():

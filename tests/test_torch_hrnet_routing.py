@@ -4,17 +4,15 @@ A kernel serves a channel width only where its default library has a plan
 for it (``fused_block.takes`` / ``fused_block_stencil.takes``: C % 16 ==
 0, C at most the kernel's ``_MAX_C``, a tile that fits).  The HRNet folds
 and fuses only those blocks and runs the others unfused, on every device.
-Here the CUDA route is mocked on the CPU: the public wrapper runs the
-kernel's CUDA path with its own operand checks — for the tiled kernel a
-stand-in of the C++ operator's (``csrc/egonet_ops_cuda.cpp``: the checks,
-then the width's default plan from the table ``_build`` generates for it,
-a width without one raising), for the stencil its ``_op_cuda`` — and the
-launch computes the plain version, counted by width.  A block the kernel
-does not take would raise in those checks, as it did on the card before
-the routing looked at the width.
+Here the CUDA route is faked on the CPU: the public wrapper calls a
+stand-in of the C++ operator's CUDA kernel (``csrc/egonet_ops_cuda.cpp``:
+the operand contract, then the width's default plan from the table
+``_build`` generates for it, a width without one raising), whose launch
+computes the plain version, counted by width.  A block the kernel does
+not take would raise there, as it did on the card before the routing
+looked at the width.
 """
 
-import contextlib
 import re
 
 import numpy as np
@@ -47,19 +45,6 @@ def _plan_table(macro):
     return table
 
 
-def _tiled_cuda(x, w1, b1, w2, b2):
-    """What the C++ operator's CUDA kernel does for the tiled kernel: the
-    operand checks, the width's default plan from its table (raising
-    where it has none), the launch."""
-    fb._check(x, w1, b1, w2, b2)
-    fields = _plan_table("TILED").get(x.shape[3])
-    if fields is None:
-        raise ValueError(f"no default plan at C={x.shape[3]}")
-    plan = fb.plan_for(x.shape[3])
-    assert fields == [getattr(plan, f) for f in fb._PLAN_FIELDS]
-    return fb._launch(x, w1, b1, w2, b2, plan, None, None)
-
-
 def _wrapper(module):
     return getattr(module, "fused_basic_block" if module is fb
                    else "fused_basic_block_stencil")
@@ -67,27 +52,31 @@ def _wrapper(module):
 
 @pytest.fixture
 def cuda_route(monkeypatch):
-    """Route both public wrappers through their kernel's CUDA path with
-    torch.cuda mocked; each launch runs the plain version and is counted
-    by (kernel, C).  Returns the counts."""
+    """A fake of each operator's CUDA kernel behind both public wrappers:
+    the operand contract (the op's Meta kernel), the width's default plan
+    from its table (raising ValueError where it has none), then the launch,
+    counted by (kernel, C), which runs the plain version.  Returns the
+    counts."""
+    _build.load_ops("cpu")
     counts = {}
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda device: contextlib.nullcontext())
     for name, module in KERNELS.items():
-        def launch(x, w1, b1, w2, b2, plan, struct, fn, name=name):
-            assert plan.c == x.shape[3]
-            key = (name, x.shape[3])
-            counts[key] = counts.get(key, 0) + 1
+        packet = getattr(torch.ops.egonet, _wrapper(module).__name__)
+        table = _plan_table("TILED" if module is fb else "STENCIL")
+
+        def op(x, w1, b1, w2, b2, plan=None, name=name, module=module,
+               real=packet.default, table=table):
+            assert plan is None
+            real(*(t.to("meta") for t in (x, w1, b1, w2, b2)))
+            c = x.shape[3]
+            if c not in table:
+                raise ValueError(f"no default plan at C={c}")
+            default = module.plan_for(c)
+            assert table[c] == [getattr(default, f)
+                                for f in module._PLAN_FIELDS]
+            counts[(name, c)] = counts.get((name, c), 0) + 1
             return fb.fused_basic_block_reference(x, w1, b1, w2, b2)
 
-        monkeypatch.setattr(module, "_launch", launch)
-        monkeypatch.setattr(
-            module, "_default_launcher",
-            (lambda c: (fb.plan_for(c), None, None)) if module is fb
-            else (lambda plan: (plan, None, None)))
-        monkeypatch.setattr(module, _wrapper(module).__name__,
-                            _tiled_cuda if module is fb
-                            else (lambda x, *w: st._op_cuda(x, *w)))
+        monkeypatch.setattr(packet, "default", op)
     return counts
 
 
@@ -102,8 +91,8 @@ def _operands(c, seed=0):
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
 @pytest.mark.parametrize("c", [8, 18, 32, 48, 144, 384, 400, 512])
 def test_takes_is_what_the_cuda_route_launches(cuda_route, kernel, c):
-    """``takes(c)`` holds exactly where the mocked CUDA route launches;
-    elsewhere the kernel's own checks raise before any launch."""
+    """``takes(c)`` holds exactly where the faked CUDA route launches;
+    elsewhere the operator's checks raise before any launch."""
     module = KERNELS[kernel]
     x, w, b = _operands(c)
     if module.takes(c):

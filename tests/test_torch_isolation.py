@@ -109,6 +109,23 @@ def test_export_loading_half_imports_no_ops_or_models():
         ("egonet_tpu_torch.ops", "egonet_tpu_torch.models"))], names
 
 
+def test_fused_block_wrappers_import_no_ctypes():
+    """The fused kernels reach the card only through their C++ operators:
+    no ops/fused_block*.py imports ctypes (at any level), so none can
+    launch a kernel library itself."""
+    ops = os.path.join(ROOT, "egonet_tpu_torch", "ops")
+    names = sorted(n for n in os.listdir(ops)
+                   if n.startswith("fused_block") and n.endswith(".py"))
+    assert names == ["fused_block.py", "fused_block_stencil.py"]
+    bad = []
+    for name in names:
+        with open(os.path.join(ops, name)) as f:
+            tree = ast.parse(f.read(), name)
+        bad += [f"{name}: import {module}" for module, _ in _imports(tree)
+                if module.split(".")[0] == "ctypes"]
+    assert not bad, bad
+
+
 def test_entry_point_defaults_to_cuda_and_raises_without_it(monkeypatch):
     from egonet_tpu_torch.config import (demo_config, train_igrs_config,
                                          train_lifting_config)

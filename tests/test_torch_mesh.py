@@ -4,11 +4,12 @@ over it in one process: ``pad_instance_batch`` against the JAX package's,
 port and against the JAX facade on ``make_mesh(8)`` (conftest's 8 virtual
 CPU devices; JAX run eagerly, as in tests/test_torch_egonet.py; slice bars:
 kpts 1e-3 px, angles 1e-4 rad), the server over a mesh, the node shards
-of ``host_shard`` outside a process group, and the kernels' device guard
-(a launch on a tensor of one card runs with that card current)."""
+of ``host_shard`` outside a process group.  The kernels' device guard (a
+launch on a tensor of one card runs with that card current) is the C++
+operators' ``CUDAGuard``, which ``chip_smoke.py --cards N`` holds on the
+cards."""
 
 import functools
-import types
 
 import numpy as np
 import pytest
@@ -21,8 +22,6 @@ from egonet_tpu.models.egonet import EgoNet as JaxEgoNet
 from egonet_tpu.parallel import mesh as jmesh
 from egonet_tpu_torch.data import loader as tld
 from egonet_tpu_torch.models.egonet import EgoNet
-from egonet_tpu_torch.ops import fused_block as fb
-from egonet_tpu_torch.ops import fused_block_stencil as st
 from egonet_tpu_torch.parallel import mesh
 from tests.test_torch_egonet import _annot, _compare_records, _pair
 
@@ -239,61 +238,3 @@ def _png_b64(img):
     import base64
     from egonet_tpu_torch.data import png
     return base64.b64encode(png.encode(img)).decode()
-
-
-# ------------------------------------------------------------ device guard
-
-class _Guard:
-    """Stands in for ``torch.cuda.device``: records the device made
-    current around what runs inside it."""
-    current = None
-
-    def __init__(self, device):
-        self.device = device
-
-    def __enter__(self):
-        self.saved, _Guard.current = _Guard.current, self.device
-
-    def __exit__(self, *exc):
-        _Guard.current = self.saved
-
-
-@pytest.mark.parametrize("module", [fb, st], ids=["tiled", "stencil"])
-def test_launches_run_under_the_operands_device(monkeypatch, module):
-    """With torch.cuda mocked, a direct launch, and the stencil's ``tile=``
-    override with its launcher's first build (the occupancy query), find
-    the operands' device current (not the thread's).  The operators' CUDA
-    kernels hold x's device with a CUDAGuard (csrc/egonet_ops_cuda.cpp),
-    which only the card runs."""
-    seen = []
-    monkeypatch.setattr(torch.cuda, "device", _Guard)
-    monkeypatch.setattr(
-        torch.cuda, "current_stream",
-        lambda device=None: seen.append(("stream", _Guard.current, device))
-        or types.SimpleNamespace(cuda_stream=0))
-
-    def entry(*args):
-        seen.append(("launch", _Guard.current))
-        return 0
-
-    def launcher(*args):
-        seen.append(("launcher", _Guard.current))
-        return ("plan", "struct", entry)
-
-    monkeypatch.setattr(module, "_default_launcher", launcher)
-    monkeypatch.setattr(module, "_check", lambda *a: None)
-    counted = getattr(module, "fused_basic_block" if module is fb
-                      else "fused_basic_block_stencil")
-    monkeypatch.setattr(counted, "launches", counted.launches)
-    c = 48
-    x = torch.zeros(1, 8, 8, c, dtype=torch.bfloat16)
-    w = torch.zeros(c, 3, 3, c, dtype=torch.bfloat16)
-    b = torch.zeros(c)
-    if module is st:
-        module._op_cuda(x, w, b, w, b)
-        assert seen == [("launcher", x.device),
-                        ("stream", x.device, x.device),
-                        ("launch", x.device)], seen
-        seen.clear()
-    module._launch(x, w, b, w, b, "plan", "struct", entry)
-    assert seen == [("stream", x.device, x.device), ("launch", x.device)]

@@ -74,7 +74,9 @@ def test_stencil_plan_fits_and_spans_the_map(C, H):
 def test_a_width_no_plan_serves_raises():
     """No silent way out of the kernel: a width that is no multiple of 16
     or is past the widest the kernels serve has no plan, and the wrapper
-    checks its operands before any launch."""
+    checks its operands before any launch: the operator's contract
+    (``check_contract``, run here by its Meta kernel; the CPU kernel, the
+    plain version, takes any width)."""
     for c in (24, 40):
         with pytest.raises(ValueError):
             fb.plan_for(c)
@@ -82,11 +84,11 @@ def test_a_width_no_plan_serves_raises():
             st.plan_for(c)
     with pytest.raises(ValueError):
         fb.plan_for(fb._MAX_C + 16)
-    x = torch.zeros(1, 6, 6, 24, dtype=torch.bfloat16)
-    w = torch.zeros(24, 3, 3, 24, dtype=torch.bfloat16)
-    b = torch.zeros(24)
-    with pytest.raises(ValueError):
-        fb._check(x, w, b, w, b)
+    x = torch.zeros(1, 6, 6, 24, dtype=torch.bfloat16, device="meta")
+    w = torch.zeros(24, 3, 3, 24, dtype=torch.bfloat16, device="meta")
+    b = torch.zeros(24, device="meta")
+    with pytest.raises(ValueError, match="not a multiple of 16"):
+        fb.fused_basic_block(x, w, b, w, b)
 
 
 def _kernel_case(wrapper, counter, C, H, B):

@@ -545,14 +545,19 @@ def test_probe_tile_runs_a_default_library_variant():
 
 
 def test_tile_override_outside_the_default_library_is_refused(monkeypatch):
-    """A tile whose kernel variant the default library lacks raises before
-    the card is touched (no library is built for it)."""
-    monkeypatch.setattr(st, "_LAUNCHERS", {})
-    monkeypatch.setattr(st, "_launcher", lambda *a: pytest.fail("launcher"))
-    plan = st.plan_for(32, (4, 2, 2, 2, 1, 1, 1))
+    """A tile whose kernel variant the default library lacks raises in the
+    wrapper, before the operator is called (nothing is built or loaded
+    for it)."""
+    tile = (4, 2, 2, 2, 1, 1, 1)
+    plan = st.plan_for(32, tile)
     assert st._variant(plan) not in _library_variants(st.library()[2])
+    monkeypatch.setattr(_build, "load_ops",
+                        lambda *a: pytest.fail("the operator was reached"))
+    x = torch.zeros(1, 4, 4, 32, dtype=torch.bfloat16)
+    w = torch.zeros(32, 3, 3, 32, dtype=torch.bfloat16)
+    b = torch.zeros(32)
     with pytest.raises(ValueError, match="holds no kernel"):
-        st._default_launcher(plan)
+        st.fused_basic_block_stencil(x, w, b, w, b, tile=tile)
 
 
 def _walk(plan, x, w1, b1, w2, b2):
@@ -686,4 +691,23 @@ def test_kernel_matches_plain_version(C, H, W, B):
     torch.cuda.synchronize()
     assert st.fused_basic_block_stencil.launches == before + 1
     ref = st.fused_basic_block_reference(x, w1, b1, w2, b2)
+    torch.testing.assert_close(y.float(), ref.float(), atol=5e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_tile_override_and_probe_run_through_the_operator():
+    """On the card, ``probe_wide_tile()`` and a ``tile=(32, 1)`` launch go
+    through ``egonet::fused_basic_block_stencil`` with the tile's plan:
+    each equals the plain version and adds one to the op's count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    st._PROBE_CACHE.clear()
+    before = st.fused_basic_block_stencil.launches
+    assert st.probe_wide_tile() is True
+    assert st.fused_basic_block_stencil.launches == before + 1
+    x, folded = st.probe_args(device="cuda")
+    y = st.fused_basic_block_stencil(x, *folded, tile=(32, 1))
+    torch.cuda.synchronize()
+    assert st.fused_basic_block_stencil.launches == before + 2
+    ref = st.fused_basic_block_reference(x, *folded)
     torch.testing.assert_close(y.float(), ref.float(), atol=5e-2, rtol=2e-2)
