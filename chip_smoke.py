@@ -36,6 +36,15 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    beside it, the cuDNN convs, the bound and the other tiles / plans of
    PED_ALT_TILES / PED_STENCIL_SWEEP (each also checked), then checked at
    batches 1, 3 and 5.
+3b'. Cluster phase (``cluster_sweep`` lines): the tiled kernel at the
+   widths whose plan shares each weight slab across a cluster (CLUSTER_
+   SHAPES: W48 C=384 / 192, W32 C=256 / 128 / 64) with clusters of 1, 2
+   and 4 blocks, each held against its plain version and timed at batch 32
+   and at the main path's bucket 512 (C=384 also at the served bucket 16),
+   with the bound and the weight bytes a launch reads from L2 (36 C^2 a
+   block, once per cluster); the operator's launch beside them, its
+   ``multicast_launches`` rising by one where its plan has a cluster.
+   ``python3 chip_smoke.py --clusters`` runs this phase alone.
 3c. Rigid phase (``rigid`` line): the rigid stage's kernel
    (``egonet::rigid_solve``) against its CPU kernel at N in RIGID_SIZES
    with 32 and 33 points (angles within 1e-5 rad, translations equal, one
@@ -359,7 +368,7 @@ def _ptxas_summary(log):
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            name = "<" + ",".join(re.findall(r"Li(\d+)E", m.group(1))) + ">"
+            name = "<" + ",".join(re.findall(r"L[ib](\d+)E", m.group(1))) + ">"
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
             spill = m.group(1)
@@ -455,13 +464,14 @@ def _plan_struct(mod, plan):
     return cls(*(getattr(plan, f) for f in mod._PLAN_FIELDS))
 
 
-def max_clusters(st, plan, lib=None):
-    """How many clusters of the stencil's ``plan`` the card holds at once
-    (``cudaOccupancyMaxActiveClusters``, through the ``_clusters`` entry
-    of ``lib``, default a library of the plan alone)."""
-    struct = _plan_struct(st, plan)
-    fn = _kernel_lib(lib or st.library([plan])) \
-        .egonet_fused_basic_block_stencil_clusters
+def max_clusters(mod, plan, lib=None):
+    """How many clusters of ``plan`` (the stencil's, or a tiled cluster
+    plan) the card holds at once (``cudaOccupancyMaxActiveClusters``,
+    through the ``_clusters`` entry of ``lib``, default a library of the
+    plan alone)."""
+    struct = _plan_struct(mod, plan)
+    fn = getattr(_kernel_lib(lib or mod.library([plan])),
+                 f"egonet_{mod._LIB_NAME}_clusters")
     fn.argtypes = [ctypes.c_int, type(struct), ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = ctypes.c_int(0)
@@ -472,27 +482,55 @@ def max_clusters(st, plan, lib=None):
     return out.value
 
 
+def _weight_maps(fb, plan, lib, weights):
+    """The TMA descriptors of ``weights`` for the tiled cluster ``plan``
+    (``egonet_fused_basic_block_weight_map`` of ``lib``): (buffers, their
+    64-byte aligned addresses)."""
+    struct = _plan_struct(fb, plan)
+    fn = _kernel_lib(lib).egonet_fused_basic_block_weight_map
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, type(struct),
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bufs, addrs = [], []
+    for w in weights:
+        buf = (ctypes.c_ubyte * 192)()
+        addr = -(-ctypes.addressof(buf) // 64) * 64
+        err = fn(w.data_ptr(), plan.c, struct, addr)
+        if err != 0:
+            raise RuntimeError(f"tensor map encoding failed: CUresult {err} "
+                               f"(plan={plan})")
+        bufs.append(buf)
+        addrs.append(addr)
+    return bufs, addrs
+
+
 def direct(torch, mod, plan, lib=None):
     """``launch(x, w1, b1, w2, b2) -> y``: the kernel of ``mod``
     (``fused_block`` or ``fused_block_stencil``) with ``plan``, launched
     from ``lib`` (default: the module's default library) through its plain
     C entry point, on the current stream of x's device with that device
-    current.  The package reaches a kernel only through its operator; the
-    sweeps' plans are in no operator's table, so their launches are made
-    here, and the op's ``launches`` does not count them.  Raises for a
-    stencil plan the card holds no cluster of."""
+    current (a tiled cluster plan with its weights' TMA descriptors,
+    encoded when the operands change).  The package reaches a kernel only
+    through its operator; the sweeps' plans are in no operator's table, so
+    their launches are made here, and the op's ``launches`` does not count
+    them.  Raises for a plan the card holds no cluster of."""
     lib = lib or mod.library()
-    if mod.__name__.endswith("stencil") and max_clusters(mod, plan, lib) < 1:
-        raise RuntimeError(f"the card holds no cluster of {plan.k} blocks "
-                           f"of {plan.smem} bytes (plan={plan})")
+    stencil = mod.__name__.endswith("stencil")
+    clustered = not stencil and plan.cluster > 1
+    if (stencil or clustered) and max_clusters(mod, plan, lib) < 1:
+        k = plan.k if stencil else plan.cluster
+        raise RuntimeError(f"the card holds no cluster of {k} blocks of "
+                           f"{plan.smem} bytes (plan={plan})")
     struct = _plan_struct(mod, plan)
     fn = getattr(_kernel_lib(lib), "egonet_" + mod._LIB_NAME)
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                   + [type(struct), ctypes.c_void_p])
+                   + [type(struct)] + [ctypes.c_void_p] * (1 if stencil
+                                                           else 3))
     fn.restype = ctypes.c_int
     # the operands last checked, held so that `is` cannot match a new
     # tensor: a timing loop pays for the check once, not every launch
     checked = [None] * 5
+    maps = [None, (None, None)]      # descriptor buffers, their addresses
 
     def launch(x, w1, b1, w2, b2):
         c = plan.c
@@ -508,13 +546,16 @@ def direct(torch, mod, plan, lib=None):
                             for t in ops)):
                 raise ValueError(f"operands do not fit the plan at C={c}")
             checked[:] = ops
+            if clustered:
+                maps[:] = _weight_maps(mod, plan, lib, (w1, w2))
         n, h, w, _ = x.shape
         y = torch.empty_like(x)
+        extra = () if stencil else tuple(maps[1])
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                      w2.data_ptr(), b2.data_ptr(), y.data_ptr(), n, h, w, c,
-                     struct, stream)
+                     struct, *extra, stream)
         if err != 0:
             raise RuntimeError(f"{mod._LIB_NAME} launch failed: CUDA error "
                                f"{err} (N={n} H={h} W={w} plan={plan})")
@@ -524,6 +565,91 @@ def direct(torch, mod, plan, lib=None):
 
 def _tile_name(tile):
     return "x".join(map(str, tile))
+
+
+# the widths the tiled kernel runs as clusters sharing each weight slab (W48
+# C=384 / 192, W32 C=256 / 128 / 64), swept at every cluster size at batch
+# 32 and at the main path's bucket 512; C=384 also at the served bucket 16
+CLUSTER_SHAPES = ((384, 8), (192, 16), (256, 6), (128, 12), (64, 24))
+CLUSTER_BATCHES = (32, 512)
+SERVED_BUCKET = 16
+
+
+def cluster_plans(fb):
+    """{C: {k: plan}}: each width of CLUSTER_SHAPES at its default tile
+    with every cluster size that fits (1 included)."""
+    return {c: {k: fb.plan_for(c, None, k) for k in (1,) + fb._CLUSTERS
+                if fb.tile_fits(c, None, k)} for c, _ in CLUSTER_SHAPES}
+
+
+def cluster_phase(torch, fb, plans, lib):
+    """The tiled kernel at each width of CLUSTER_SHAPES with each cluster
+    size of ``plans`` (launched from ``lib``): held against its plain
+    version (one bf16 step) and timed at batch 32 and 512 (C=384 also at
+    16), beside the bound and the weight bytes a launch reads from L2
+    (36 C^2 per block, once per cluster); and the operator's own launch
+    (the width's default plan).  One ``cluster_sweep`` line per shape."""
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for c, h in CLUSTER_SHAPES:
+        batches = CLUSTER_BATCHES + ((SERVED_BUCKET,) if c == 384 else ())
+        for batch in batches:
+            x, (w1, b1, w2, b2) = _block_inputs(torch, fb, g, c, h, batch)
+            ref = fb.fused_basic_block_reference(x, w1, b1, w2, b2).float()
+            ops = 4.0 * batch * h * h * 9 * c * c
+            nbytes = 4.0 * batch * h * h * c + 36.0 * c * c
+            row = {"shape": {"C": c, "H": h, "W": h, "B": batch},
+                   "default_cluster": fb.plan_for(c).cluster,
+                   "bound_ms": max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3,
+                   "by_cluster": {}}
+            for k, plan in plans[c].items():
+                launch = direct(torch, fb, plan, lib)
+                y = launch(x, w1, b1, w2, b2)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(y.float(), ref, atol=5e-2,
+                                           rtol=2e-2)
+                gx, gy = fb.grid_for(plan, batch, h, h)
+                row["by_cluster"][str(k)] = {
+                    "ms": _time_ms(torch, lambda: launch(x, w1, b1, w2, b2)),
+                    "max_abs_err": (y.float() - ref).abs().max().item(),
+                    "blocks": gx * gy,
+                    "l2_weight_bytes": 36 * c * c * gx * gy // k,
+                    "ks": plan.ks, "stages": plan.stages,
+                    "smem": plan.smem}
+            before = fb.fused_basic_block.multicast_launches
+            y = fb.fused_basic_block(x, w1, b1, w2, b2)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(y.float(), ref, atol=5e-2, rtol=2e-2)
+            assert fb.fused_basic_block.multicast_launches == before + (
+                row["default_cluster"] > 1)
+            row["op_ms"] = _time_ms(
+                torch, lambda: fb.fused_basic_block(x, w1, b1, w2, b2))
+            print(json.dumps({"cluster_sweep": row}), flush=True)
+            rows.append(row)
+            del x, w1, w2, ref, y
+    return rows
+
+
+def clusters_only(torch, _build, fb, card):
+    """``--clusters``: the operator libraries and the cluster sweep's
+    library built (ptxas's registers and spills printed), then
+    :func:`cluster_phase`; ends with the card and ``{"ok": true}``."""
+    plans = cluster_plans(fb)
+    lib = fb.library([p for by_k in plans.values() for p in by_k.values()])
+    t0 = time.perf_counter()
+    _build.build(_build.ops_libs("cuda") + [lib])
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, info in _build.BUILD_INFO.items():
+        print(f"[{name}] built in {info['seconds']:.1f} s; "
+              + "; ".join(_ptxas_summary(info["log"])), flush=True)
+    t0 = time.perf_counter()
+    cluster_phase(torch, fb, plans, lib)
+    print(json.dumps({"phase_s": {"clusters": time.perf_counter() - t0},
+                      "card": card}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "name": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def sweep_plans(fb):
@@ -1120,11 +1246,16 @@ def slice_phase(torch, np, fb, st):
     annot = _frames(np)
     n_inst = N_FRAMES * N_BOXES
 
+    fb.fused_basic_block.multicast_launches = 0
     with tempfile.TemporaryDirectory() as out_dir:
         records, launches, first_s = _drive(torch, model, annot, fb, st,
                                             out_dir)
     assert launches == {"tiled": 104, "stencil": 0, "rigid": 1,
                         "bn_act": BN_ACT_PER_FORWARD}, launches
+    # launches as clusters: the widths whose plan has one (C=192 and 384)
+    multicast = fb.fused_basic_block.multicast_launches
+    assert multicast == sum(n for c, n in PER_FORWARD.items()
+                            if fb.plan_for(c).cluster > 1), multicast
 
     ry = _ry(np, records)
     for p, rec in records.items():
@@ -1145,7 +1276,9 @@ def slice_phase(torch, np, fb, st):
     steady_s = _steady_s(torch, model, annot)
     result = {"instances": n_inst, "bucket": 32,
               "launches": launches["tiled"],
-              "launches_per_forward": launches["tiled"], "setup_s": setup_s,
+              "launches_per_forward": launches["tiled"],
+              "multicast_launches_per_forward": multicast,
+              "setup_s": setup_s,
               "first_batch_s": first_s, "batch_s": steady_s,
               "crops_per_s": n_inst / steady_s,
               "median_d_ry_fused_vs_unfused_deg": float(np.median(d_ry)),
@@ -3848,6 +3981,8 @@ def main(argv=None) -> int:
     ap.add_argument("--trained-loop", action="store_true",
                     help="run only tools/trained_closed_loop at its full "
                          "recipe")
+    ap.add_argument("--clusters", action="store_true",
+                    help="run only the tiled kernel's cluster sweep")
     ap.add_argument("--cards", type=int, metavar="N",
                     help="run only the multicard phase over the first N "
                          "cards (an error when fewer are visible)")
@@ -3879,6 +4014,8 @@ def main(argv=None) -> int:
         return gate_only(torch, np, fb, st, card, args.gate_donors)
     if args.trained_loop:
         return trained_loop_only(torch, card)
+    if args.clusters:
+        return clusters_only(torch, _build, fb, card)
     if args.cards:
         return multicard_only(torch, np, card, args.cards)
     sweep = sweep_plans(fb)
@@ -3890,11 +4027,15 @@ def main(argv=None) -> int:
                                 for _, p in plans])
     ped_stencil_lib = st.library([p for plans in ped_stencil.values()
                                   for p in plans])
+    cplans = cluster_plans(fb)
+    cluster_lib = fb.library([p for by_k in cplans.values()
+                              for p in by_k.values()])
     t0 = time.perf_counter()
     # the operator libraries (csrc/egonet_ops*.cpp, the host compiler) and
     # every kernel library (nvcc), all compilers started together
     _build.build(_build.ops_libs("cuda") + [sweep_lib, ssweep_lib,
-                                            ped_tiled_lib, ped_stencil_lib])
+                                            ped_tiled_lib, ped_stencil_lib,
+                                            cluster_lib])
     build_s = time.perf_counter() - t0
     print(f"kernels built in {build_s:.1f} s", flush=True)
     for name, info in _build.BUILD_INFO.items():
@@ -3921,6 +4062,7 @@ def main(argv=None) -> int:
                   ssweep, ssweep_lib)
     ped_rows = timed("kernel_ped", kernel_ped_phase, torch, fb, st,
                      ped_tiled, ped_tiled_lib, ped_stencil, ped_stencil_lib)
+    timed("clusters", cluster_phase, torch, fb, cplans, cluster_lib)
     timed("rigid", rigid_phase, torch, np, card)
     timed("bn_act", bn_act_phase, torch, np, card)
     result, model, annot, ry, ry_u = timed("slice", slice_phase, torch, np,

@@ -10,10 +10,11 @@
 #include <optional>
 
 extern "C" {
-// Kernel launches of op `op` (kTiled, kStencil, kRigid or kBnAct), counted by
-// libegonet_ops.so where a kernel launches, in the CUDA kernels of
-// egonet_ops_cuda.cpp, and nowhere else.  ops/_build.py reads and sets them
-// through ctypes.
+// Kernel launches of op `op` (kTiled, kStencil, kRigid or kBnAct; and
+// kTiledMulticast, the tiled op's launches as clusters sharing each weight
+// slab, counted besides kTiled), counted by libegonet_ops.so where a kernel
+// launches, in the CUDA kernels of egonet_ops_cuda.cpp, and nowhere else.
+// ops/_build.py reads and sets them through ctypes.
 int64_t egonet_launches(int op);
 void egonet_set_launches(int op, int64_t n);
 void egonet_add_launch(int op);
@@ -21,7 +22,14 @@ void egonet_add_launch(int op);
 
 namespace egonet {
 
-enum Op : int { kTiled = 0, kStencil = 1, kRigid = 2, kBnAct = 3, kOps = 4 };
+enum Op : int {
+  kTiled = 0,
+  kStencil = 1,
+  kRigid = 2,
+  kBnAct = 3,
+  kTiledMulticast = 4,
+  kOps = 5
+};
 
 // the widest channel count the stencil kernel's default library serves
 // (ops/fused_block_stencil.py, _MAX_C), from the prelude ops/_build.py

@@ -3,7 +3,9 @@
 // egonet::fused_basic_block_stencil: check the operands, take the width's
 // default plan (the stencil: the plan it is given, if any) and launch the
 // Hopper kernel of fused_basic_block.cu / fused_basic_block_stencil.cu
-// through its plain C entry point.
+// through its plain C entry point.  Where the tiled plan has a cluster,
+// the weights' TMA descriptors go with the launch, each encoded once per
+// (device, address, width) and kept.
 // egonet::rigid_solve: check the operand and launch rigid_solve.cu's one
 // kernel over the batch.  egonet::bn_act: check the operands and launch
 // bn_act.cu's one pass over the tensor.  Each on the current stream of its
@@ -34,11 +36,13 @@
 #include <torch/library.h>
 
 #include <cstdint>
+#include <map>
 #include <mutex>
 #include <optional>
 #include <set>
 #include <sstream>
 #include <string>
+#include <tuple>
 #include <utility>
 #include <vector>
 
@@ -64,7 +68,13 @@ extern "C" {
 // fused_basic_block.cu / fused_basic_block_stencil.cu: 0 or a cudaError_t
 int egonet_fused_basic_block(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* b2, void* y, int N,
-                             int H, int W, int C, TiledPlan p, void* stream);
+                             int H, int W, int C, TiledPlan p,
+                             const void* map1, const void* map2,
+                             void* stream);
+// 0 or a CUresult
+int egonet_fused_basic_block_weight_map(const void* w, int C, TiledPlan p,
+                                        void* map);
+int egonet_fused_basic_block_clusters(int C, TiledPlan p, int* clusters);
 int egonet_fused_basic_block_stencil(const void* x, const void* w1,
                                      const void* b1, const void* w2,
                                      const void* b2, void* y, int N, int H,
@@ -159,25 +169,68 @@ void check(const at::Tensor& x, const at::Tensor& w1, const at::Tensor& b1,
   }
 }
 
-// The stencil's cluster-occupancy check, once per device and plan: a
-// launch of a plan the card holds no cluster of would fail.
-void check_clusters(int device, int64_t c, const StencilPlan& p) {
+#define EGONET_VALUE(f) p.f,
+std::vector<int> values(const TiledPlan& p) {
+  return {EGONET_TILED_FIELDS(EGONET_VALUE)};
+}
+std::vector<int> values(const StencilPlan& p) {
+  return {EGONET_STENCIL_FIELDS(EGONET_VALUE)};
+}
+#undef EGONET_VALUE
+
+int clusters_of(int64_t c, const TiledPlan& p, int* n) {
+  return egonet_fused_basic_block_clusters(int(c), p, n);
+}
+int clusters_of(int64_t c, const StencilPlan& p, int* n) {
+  return egonet_fused_basic_block_stencil_clusters(int(c), p, n);
+}
+
+// A clustered plan's occupancy check (k blocks a cluster), once per device
+// and plan: a launch of a plan the card holds no cluster of would fail.
+template <typename Plan>
+void check_clusters(int device, int64_t c, const Plan& p, int k) {
   static std::mutex mu;
   static std::set<std::pair<int, std::vector<int>>> held;
-#define EGONET_VALUE(f) p.f,
-  const std::pair<int, std::vector<int>> key{
-      device, {EGONET_STENCIL_FIELDS(EGONET_VALUE)}};
-#undef EGONET_VALUE
+  const std::pair<int, std::vector<int>> key{device, values(p)};
   const std::lock_guard<std::mutex> lock(mu);
   if (held.count(key)) return;
   int clusters = 0;
-  const int err =
-      egonet_fused_basic_block_stencil_clusters(int(c), p, &clusters);
+  const int err = clusters_of(c, p, &clusters);
   TORCH_CHECK(err == 0, "cluster occupancy query failed: ", cuda_error(err),
               " (C=", c, describe(p), ")");
-  TORCH_CHECK(clusters >= 1, "the card holds no cluster of ", p.k,
+  TORCH_CHECK(clusters >= 1, "the card holds no cluster of ", k,
               " blocks of ", p.smem, " bytes (C=", c, describe(p), ")");
   held.insert(key);
+}
+
+// A CUtensorMap (128 bytes, 64-byte aligned), opaque here.
+struct alignas(64) WeightMap {
+  unsigned char bytes[128];
+};
+
+// The TMA descriptor of the weight `w` for the tiled cluster plan `p` at
+// width c, encoded at the first launch that reads it and kept per
+// (device, address, width): it holds nothing but the address and the
+// width's box, so a tensor later allocated at the same address takes the
+// same one.  The kept set is emptied past 4,096 descriptors.
+WeightMap weight_map(int device, const at::Tensor& w, int64_t c,
+                     const TiledPlan& p) {
+  using Key = std::tuple<int, const void*, int64_t>;
+  static std::mutex mu;
+  static std::map<Key, WeightMap> kept;
+  const Key key{device, w.data_ptr(), c};
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto it = kept.find(key);
+  if (it != kept.end()) return it->second;
+  WeightMap m{};
+  const int err =
+      egonet_fused_basic_block_weight_map(w.data_ptr(), int(c), p, &m);
+  TORCH_CHECK(err == 0, "fused_basic_block: the weights' TMA descriptor "
+              "could not be encoded (CUresult ", err, "; C=", c, describe(p),
+              ")");
+  if (kept.size() >= 4096) kept.clear();
+  kept.emplace(key, m);
+  return m;
 }
 
 template <egonet::Op OP>
@@ -194,15 +247,25 @@ at::Tensor fused_cuda(const at::Tensor& x, const at::Tensor& w1,
   void* stream = c10::cuda::getCurrentCUDAStream(x.device().index()).stream();
   int err;
   std::string plan;
+  bool clustered = false;
   if constexpr (OP == egonet::kTiled) {
     const TiledPlan& p = plan_for(kTiled, c, name);
-    err = egonet_fused_basic_block(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                                   w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
-                                   n, h, w, c, p, stream);
+    clustered = p.cluster > 1;
+    WeightMap m1, m2;
+    if (clustered) {
+      const int device = x.device().index();
+      check_clusters(device, c, p, p.cluster);
+      m1 = weight_map(device, w1, c, p);
+      m2 = weight_map(device, w2, c, p);
+    }
+    err = egonet_fused_basic_block(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), y.data_ptr(), n, h, w, c, p,
+        clustered ? &m1 : nullptr, clustered ? &m2 : nullptr, stream);
     if (err != 0) plan = describe(p);
   } else {
     const StencilPlan p = stencil_plan(c, given);
-    check_clusters(x.device().index(), c, p);
+    check_clusters(x.device().index(), c, p, p.k);
     err = egonet_fused_basic_block_stencil(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), y.data_ptr(), n, h, w, c, p, stream);
@@ -211,6 +274,7 @@ at::Tensor fused_cuda(const at::Tensor& x, const at::Tensor& w1,
   TORCH_CHECK(err == 0, name, " launch failed: ", cuda_error(err), " (N=", n,
               " H=", h, " W=", w, " C=", c, " plan:", plan, ")");
   egonet_add_launch(OP);
+  if (clustered) egonet_add_launch(egonet::kTiledMulticast);
   return y;
 }
 

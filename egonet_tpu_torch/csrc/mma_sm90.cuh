@@ -1,8 +1,10 @@
 // Shared-memory tensor-core helpers for the port's Hopper (sm_90a) kernels:
 // cp.async copies into shared memory, ldmatrix fragment loads from
 // shared-space addresses, the bf16 mma.sync.m16n8k16 with fp32
-// accumulators, and (used by the stencil kernel) thread-block cluster
-// barriers and distributed shared memory stores.  Included by
+// accumulators, thread-block cluster barriers and distributed shared
+// memory stores (the stencil kernel), and mbarriers with TMA tensor loads
+// multicast across a cluster (the tiled kernel's shared weight slabs).
+// Included by
 // fused_basic_block.cu and fused_basic_block_stencil.cu; each builds into
 // its own library, so the helpers have internal linkage.
 
@@ -139,6 +141,82 @@ __device__ __forceinline__ void cluster_sync() {
       "barrier.cluster.arrive.release.aligned;\n"
       "barrier.cluster.wait.acquire.aligned;\n" ::
           : "memory");
+}
+
+// ---- mbarriers and TMA loads multicast across a cluster ----
+
+// an mbarrier at shared address `bar` expecting `count` arrivals a phase
+// (one thread; fence_mbarrier_init before any other block may use it)
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// the barriers initialised before it are visible to the whole cluster
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// wait until the phase of parity `parity` of this block's barrier `bar`
+// has completed (the loads it counts have landed)
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// arrive on this block's barrier `bar` and add `bytes` to the bytes its
+// phase waits for
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned bar,
+                                                      unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// arrive on a barrier of the cluster (a shared::cluster address, from
+// map_shared_rank), after this thread's earlier reads
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// a barrier of the first `n` threads of the block (a multiple of 32), `id`
+// other than 0 (__syncthreads')
+__device__ __forceinline__ void named_sync(unsigned id, unsigned n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// fetch a TMA descriptor (a __grid_constant__ kernel parameter) ahead
+__device__ __forceinline__ void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// One TMA load of the box at (column c0, row c1) of the 2-D tensor map
+// `map` into shared address `dst` of every block of the cluster in `mask`;
+// each block's barrier at shared address `bar` counts the bytes landed.
+__device__ __forceinline__ void tma_load_multicast(unsigned dst,
+                                                   const void* map, int c0,
+                                                   int c1, unsigned bar,
+                                                   unsigned short mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar),
+      "h"(mask)
+      : "memory");
 }
 
 }  // namespace

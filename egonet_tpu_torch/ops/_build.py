@@ -60,8 +60,10 @@ OPS, OPS_CUDA = "egonet_ops", "egonet_ops_cuda"
 _LINKS = {OPS: (), OPS_CUDA: (OPS, "fused_basic_block",
                               "fused_basic_block_stencil", "rigid_solve",
                               "bn_act")}
-# the ops' numbers in the launch counts (csrc/egonet_ops.h, egonet::Op)
-TILED, STENCIL, RIGID, BN_ACT = 0, 1, 2, 3
+# the ops' numbers in the launch counts (csrc/egonet_ops.h, egonet::Op);
+# TILED_MULTICAST: the tiled op's launches as clusters sharing each weight
+# slab, counted besides TILED
+TILED, STENCIL, RIGID, BN_ACT, TILED_MULTICAST = 0, 1, 2, 3, 4
 
 # device types whose operator libraries are loaded
 _OPS_LOADED: set = set()
@@ -339,8 +341,8 @@ def _counts() -> ctypes.CDLL:
 
 def launches(op: int) -> int:
     """Kernel launches of op ``op`` (:data:`TILED`, :data:`STENCIL`,
-    :data:`RIGID`, :data:`BN_ACT`) since the count was last set: the
-    operator's CUDA kernel counts each launch."""
+    :data:`RIGID`, :data:`BN_ACT`, :data:`TILED_MULTICAST`) since the
+    count was last set: the operator's CUDA kernel counts each launch."""
     return int(_counts().egonet_launches(op))
 
 

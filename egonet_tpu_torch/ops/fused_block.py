@@ -22,16 +22,21 @@ the bound, and the design spends its effort on feeding them: the x tile,
 the mid tile and the weights (in K slabs, read from L2 once per thread
 block) sit in shared memory, every operand fragment is an ``ldmatrix``
 into a ``mma.sync`` from addresses fixed outside the K loop, and the GEMM
-rows are the tile's real positions only.  At C=384 the weights every block
-reads from L2 bind instead.  ``csrc/fused_basic_block.cu`` has the design;
-wgmma, TMA and weight multicast across clusters are later work (see
+rows are the tile's real positions only.  At the deep widths the weights
+every block reads from L2 bind instead: a block does (M1 + M2) / 2
+operations per weight byte it streams (its real GEMM rows of conv1 and
+conv2), 26 at C=384 on a 4x4 tile.  There (:func:`cluster_for`) a cluster
+of 2 blocks, the same tile of two images, shares each weight slab: one TMA
+load of each block's half of the slab, multicast into both blocks, so the
+weights leave L2 once per cluster.
+``csrc/fused_basic_block.cu`` has the design; wgmma is later work (see
 PERF.md for its times and bound).
 
 The launch plan — tile, images per block, warp grid, K slab depth, slabs
 in flight and the shared-memory layout — is reckoned here (:func:`plan_for`)
 and passed to the kernel, which checks it against the layout it addresses.
-The kernel library instantiates exactly the (MT, NT, KS) variants of the
-plans it serves (:func:`library`), listed here and nowhere else.
+The kernel library instantiates exactly the (MT, NT, KS, TMA) variants of
+the plans it serves (:func:`library`), listed here and nowhere else.
 
 The kernel is the operator ``egonet::fused_basic_block``, registered once,
 in C++ (``csrc/egonet_ops.cpp``: schema, CPU kernel = the plain version in
@@ -44,12 +49,14 @@ libraries alone.  The operator is the one way to the card: the wrapper
 (``_build.load_ops``) and calls it, which runs the plain version only for a
 tensor on the CPU and for a CUDA tensor launches the kernel or raises.
 ``fused_basic_block.launches`` counts the op's kernel launches (and nothing
-else).
+else); ``fused_basic_block.multicast_launches`` those of them made as
+clusters sharing each weight slab.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import zlib
 
 import numpy as np
@@ -76,6 +83,28 @@ _MAX_C = 64 * _WARPS          # widest channel count 8 warps cover
 # pass, which the accumulators' registers bound; K slab depths)
 _PLAN_LIMITS = {3: (6, (48, 96, 144)), 1: (2, (48,)), 2: (2, (48,)),
                 4: (2, (48,))}
+# Clusters that share each weight slab (TMA multicast).  A block streams
+# both weights, 36*C^2 bytes, for 4*9*C^2*(M1 + M2) operations, its real
+# GEMM rows of conv1 and conv2: (M1 + M2) / 2 operations per weight byte
+# leaving L2, whatever C is.  A plan below _MULTICAST_BELOW takes a cluster
+# of _CLUSTER blocks: at the W48 and W32 tiles C=384 (26), C=192 (82),
+# C=256 (22), C=128 (50) and C=64 (92); C=48 (562), C=96 (290) and C=32
+# (222) stay unclustered (their 9C columns take no 64-column slab either).
+# chip_smoke.py's cluster sweep (H100 80GB HBM3, 700 W; PERF.md) at batch
+# 512, k = 1 / 2 / 4, ms a launch: C=384 2.730 / 1.157 / 1.226, C=192
+# 1.016 / 0.799 / 0.890, C=256 0.951 / 0.400 / 0.431, C=128 0.382 / 0.291 /
+# 0.310, C=64 0.333 / 0.302 / 0.323: k = 2 wins at every width and batch
+# swept, and every clustered width gains; no width between 92 and 222 takes
+# a slab, so the threshold only has to lie there.  _CLUSTERS: the sizes a
+# plan may take (chip_smoke.py sweeps them).
+_MULTICAST_BELOW = 128
+_CLUSTER = 2
+_CLUSTERS = (2, 4)
+_TMA_KS = 64                  # a cluster plan's slab: 64 columns, 128 bytes
+_BAR_BYTES = 128              # its mbarriers, after the slabs
+_TMA_STAGES = 8               # most slab buffers of a cluster plan
+_SM_SMEM = 233472             # shared memory of an SM, bytes
+_BLOCK_RESERVED = 1024        # of it, the system's per resident block
 _PLANS: dict = {}
 
 
@@ -177,6 +206,7 @@ class TilePlan:
     slab_off: int     # byte offset of the first weight slab
     slab_bytes: int   # bytes of one slab buffer
     smem: int         # dynamic shared memory of one block, bytes
+    cluster: int      # blocks sharing each weight slab (1: no cluster)
 
 
 _PLAN_FIELDS = [f.name for f in dataclasses.fields(TilePlan)][1:]
@@ -196,20 +226,53 @@ def _nt_for(c: int) -> int:
     raise ValueError(f"channel width {c} exceeds the kernel's {_MAX_C}")
 
 
-def plan_for(c: int, tile=None) -> TilePlan:
+def flop_per_weight_byte(th: int, tw: int, nb: int) -> float:
+    """Operations a block of a (TH, TW, NB) tile does per weight byte it
+    streams from L2: (M1 + M2) / 2, its real GEMM rows of conv1 and
+    conv2."""
+    return (nb * (th + 2) * (tw + 2) + nb * th * tw) / 2
+
+
+def _cluster_fits(c: int, k: int) -> bool:
+    """Whether 64-column slab rows divide 9C and a cluster of ``k`` blocks
+    shares each slab's C rows in TMA boxes (a multiple of 8, at most
+    256)."""
+    return c % _TMA_KS == 0 and (c // k) % 8 == 0 and c // k <= 256
+
+
+def cluster_for(c: int, th: int, tw: int, nb: int) -> int:
+    """Blocks that share each weight slab at width ``c`` on a (TH, TW, NB)
+    tile: ``_CLUSTER`` below ``_MULTICAST_BELOW`` operations per weight
+    byte, where its slabs fit; else 1."""
+    if (flop_per_weight_byte(th, tw, nb) < _MULTICAST_BELOW
+            and _cluster_fits(c, _CLUSTER)):
+        return _CLUSTER
+    return 1
+
+
+def plan_for(c: int, tile=None, cluster=None) -> TilePlan:
     """The launch plan at channel width ``c`` for ``tile`` = (TH, TW, NB) or
     (TH, TW, NB, KS) (default :func:`tile_for`): the warp grid, the M tiles
     each warp holds per pass (all of its share where ``_PLAN_LIMITS``
     allows, passes balanced otherwise), and the K slab depth (KS, else the
     first of the limits' that fits) with the most slab buffers (3, else 2)
-    that fit in one block's shared memory.  Raises if none fits."""
+    that fit in one block's shared memory.  ``cluster``: the blocks that
+    share each weight slab (default :func:`cluster_for`).  A cluster plan
+    takes 64-column swizzled slabs, whatever KS, as many as fit up to
+    ``_TMA_STAGES`` (a variant of few accumulators, as the kernel's launch
+    bounds say, keeps two blocks an SM where two slabs still fit so), and
+    falls back to no cluster where two do not fit, unless ``cluster`` was
+    given.  Raises if none fits."""
     tile = tuple(tile or tile_for(c))
-    key = (c,) + tile
     th, tw, nb = tile[:3]
+    key = (c,) + tile + (cluster,)
     if key in _PLANS:
         return _PLANS[key]
     if c % 16 or min(th, tw, nb) < 1:
         raise ValueError(f"no plan for C={c}, tile {th}x{tw}x{nb}")
+    k = cluster_for(c, th, tw, nb) if cluster is None else cluster
+    if k not in (1,) + _CLUSTERS or (k > 1 and not _cluster_fits(c, k)):
+        raise ValueError(f"no cluster of {k} at C={c}")
     nt = _nt_for(c)
     wn = _cdiv(c // 16, nt)
     wm = _WARPS // wn
@@ -219,6 +282,23 @@ def plan_for(c: int, tile=None) -> TilePlan:
     cp = c + 8
     xs = _align128(nb * (th + 4) * (tw + 4) * cp * 2)
     mid = _align128(nb * (th + 2) * (tw + 2) * cp * 2)
+    if k > 1:
+        slab = c * _TMA_KS * 2
+        slab_off = _cdiv(xs + mid, 1024) * 1024     # the swizzle's boundary
+        limit = _SMEM_LIMIT
+        two = _SM_SMEM // 2 - _BLOCK_RESERVED
+        if mt * nt <= 6 and slab_off + 2 * slab + _BAR_BYTES <= two:
+            limit = two                             # two blocks an SM
+        stages = min(_TMA_STAGES, (limit - slab_off - _BAR_BYTES) // slab)
+        if stages >= 2:
+            plan = TilePlan(c, th, tw, nb, cp, mt, nt, _TMA_KS, wm, wn,
+                            stages, xs, slab_off, slab,
+                            slab_off + stages * slab + _BAR_BYTES, k)
+            _PLANS[key] = plan
+            return plan
+        if cluster is not None:
+            raise ValueError(f"a cluster plan of a {th}x{tw} tile of {nb} "
+                             f"images at C={c} exceeds shared memory")
     for ks in tile[3:] or slab_depths:
         if ks not in slab_depths or (9 * c) % ks:
             continue
@@ -227,17 +307,18 @@ def plan_for(c: int, tile=None) -> TilePlan:
             smem = xs + mid + stages * slab
             if smem <= _SMEM_LIMIT:
                 plan = TilePlan(c, th, tw, nb, cp, mt, nt, ks, wm, wn,
-                                stages, xs, xs + mid, slab, smem)
+                                stages, xs, xs + mid, slab, smem, 1)
                 _PLANS[key] = plan
                 return plan
     raise ValueError(f"a {th}x{tw} tile of {nb} images at C={c} exceeds "
                      "shared memory")
 
 
-def tile_fits(c: int, tile) -> bool:
-    """Whether a (TH, TW, NB[, KS]) tile at width c has a plan."""
+def tile_fits(c: int, tile, cluster=None) -> bool:
+    """Whether a (TH, TW, NB[, KS]) tile at width c has a plan (with
+    ``cluster`` blocks a cluster, if given)."""
     try:
-        plan_for(c, tile)
+        plan_for(c, tile, cluster)
     except ValueError:
         return False
     return True
@@ -257,19 +338,35 @@ def _default_plans():
 
 def library(plans=None):
     """The kernel library as ``_build`` takes it, (name, source, prelude):
-    ``csrc/fused_basic_block.cu`` instantiating the (MT, NT, KS) variants
-    of ``plans`` and no others.  By default, those of every width's default
-    plan (what :func:`fused_basic_block` launches); a library of other
-    plans (a tile sweep) is named by its variant list."""
+    ``csrc/fused_basic_block.cu`` instantiating the (MT, NT, KS, TMA)
+    variants of ``plans`` (TMA: 1 for a cluster plan) and no others.  By
+    default, those of every width's default plan (what
+    :func:`fused_basic_block` launches); a library of other plans (a tile
+    sweep) is named by its variant list."""
     default = plans is None
     if default:
         plans = _default_plans()
-    variants = sorted({(p.mt, p.nt, p.ks) for p in plans})
+    variants = sorted({variant(p) for p in plans})
     prelude = "#define EGONET_VARIANTS " + " ".join(
-        f"EGONET_VARIANT({mt}, {nt}, {ks})" for mt, nt, ks in variants) + "\n"
+        f"EGONET_VARIANT({', '.join(map(str, v))})" for v in variants) + "\n"
     name = _LIB_NAME if default else (
         f"{_LIB_NAME}_{zlib.crc32(prelude.encode()):08x}")
     return name, _LIB_NAME, prelude
+
+
+def variant(plan: TilePlan):
+    """The kernel variant a plan runs: (MT, NT, KS, TMA)."""
+    return plan.mt, plan.nt, plan.ks, int(plan.cluster > 1)
+
+
+def grid_for(plan: TilePlan, n: int, h: int, w: int):
+    """The launch grid (x: tiles, y: image groups) of ``plan`` over an
+    [n, h, w, C] input, as ``launch`` in ``csrc/fused_basic_block.cu`` makes
+    it: with a cluster, the image groups rounded up to a multiple of it
+    (the blocks past the batch load zeros and store nothing)."""
+    groups = _cdiv(n, plan.nb)
+    return (_cdiv(h, plan.th) * _cdiv(w, plan.tw),
+            _cdiv(groups, plan.cluster) * plan.cluster)
 
 
 def tile_for(c: int):
@@ -277,15 +374,30 @@ def tile_for(c: int):
     return _TILES.get(c, (8, 8, 1, 48))
 
 
-@_build.counted(_build.TILED)
+class _TiledWrapper(_build.CountedWrapper):
+    """The tiled kernel's wrapper: ``launches`` as every kernel's, and
+    ``multicast_launches``, the launches made as clusters sharing each
+    weight slab (counted besides ``launches``)."""
+
+    @property
+    def multicast_launches(self) -> int:
+        return _build.launches(_build.TILED_MULTICAST)
+
+    @multicast_launches.setter
+    def multicast_launches(self, n: int) -> None:
+        _build.set_launches(_build.TILED_MULTICAST, n)
+
+
+@functools.partial(_TiledWrapper, op=_build.TILED)
 def fused_basic_block(x, w1, b1, w2, b2) -> torch.Tensor:
     """y = relu(conv(relu(conv(x, w1) + b1), w2) + b2 + x), NHWC bf16.
 
     x [N, H, W, C] bf16 contiguous; w1, w2 [C, 3, 3, C] bf16 (folded,
     tap-major); b1, b2 [C] fp32.  Calls the operator
     ``egonet::fused_basic_block``: a CPU tensor goes through the plain
-    version; a CUDA tensor launches the kernel with the plan of
-    :func:`tile_for` on the current stream of x's device or raises.  Under
+    version; a CUDA tensor launches the kernel with the width's default
+    plan (:func:`plan_for`) on the current stream of x's device or
+    raises.  Under
     ``torch.export`` the op is one graph node."""
     _build.load_ops(x.device.type)
     return torch.ops.egonet.fused_basic_block.default(x, w1, b1, w2, b2)

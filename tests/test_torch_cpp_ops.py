@@ -179,6 +179,24 @@ def test_one_launch_count_per_op(wrapper, op):
         _build.set_launches(other, saved_other)
 
 
+def test_multicast_count_is_apart_from_the_launch_count():
+    """The tiled wrapper's ``multicast_launches`` is the C++ count
+    ``TILED_MULTICAST``, set and read through either side, apart from the
+    op's ``launches``."""
+    wrapper = fb.fused_basic_block
+    saved = (_build.launches(_build.TILED),
+             _build.launches(_build.TILED_MULTICAST))
+    try:
+        wrapper.launches = 5
+        wrapper.multicast_launches = 2
+        assert _build.launches(_build.TILED_MULTICAST) == 2
+        _build.set_launches(_build.TILED_MULTICAST, 3)
+        assert wrapper.multicast_launches == 3 and wrapper.launches == 5
+    finally:
+        _build.set_launches(_build.TILED, saved[0])
+        _build.set_launches(_build.TILED_MULTICAST, saved[1])
+
+
 @pytest.mark.parametrize("macro,mod", [("TILED", fb), ("STENCIL", st)])
 def test_cuda_plan_table_is_the_default_plans(macro, mod):
     """The CUDA operators' plan table (generated into their prelude) holds

@@ -199,19 +199,30 @@ def _warp_n_tiles(plan):
 
 
 def _check_plan(plan):
-    """The plan's shared-memory layout holds what the kernel addresses."""
+    """The plan's shared-memory layout holds what the kernel addresses:
+    padded slabs, or with a cluster swizzled [C][64] slabs at a 1024-byte
+    boundary, each cluster block's share of the rows one TMA box, and the
+    barriers after the slabs."""
     c, cp = plan.c, plan.cp
     assert cp == c + 8 and (cp * 2) % 32 == 16       # conflict-free rows
     assert plan.smem <= SMEM_LIMIT
-    assert plan.smem == plan.slab_off + plan.stages * plan.slab_bytes
-    assert plan.stages in (2, 3)
+    assert 2 <= plan.stages <= (3 if plan.cluster == 1 else fb._TMA_STAGES)
     assert plan.mid_off % 128 == 0 and plan.slab_off % 128 == 0
     assert plan.slab_bytes % 128 == 0
-    assert plan.slab_bytes >= c * (plan.ks + 8) * 2
-    assert ((plan.ks + 8) * 2) % 32 == 16
     assert (9 * c) % plan.ks == 0 and plan.ks % 16 == 0
     mt_max, depths = fb._PLAN_LIMITS[plan.nt]
-    assert 1 <= plan.mt <= mt_max and plan.ks in depths
+    assert 1 <= plan.mt <= mt_max
+    if plan.cluster > 1:
+        assert plan.cluster in fb._CLUSTERS and plan.ks == 64
+        assert plan.slab_bytes == c * 64 * 2 and plan.slab_off % 1024 == 0
+        assert (c // plan.cluster) % 8 == 0 and c // plan.cluster <= 256
+        assert plan.smem == (plan.slab_off + plan.stages * plan.slab_bytes
+                             + fb._BAR_BYTES)
+    else:
+        assert plan.cluster == 1 and plan.ks in depths
+        assert plan.smem == plan.slab_off + plan.stages * plan.slab_bytes
+        assert plan.slab_bytes >= c * (plan.ks + 8) * 2
+        assert ((plan.ks + 8) * 2) % 32 == 16
     assert plan.wm * plan.wn <= 8
     # the furthest byte an A fragment reads (row, tap (2, 2), last 16
     # channels) lies inside its tile: conv1 in the x tile, conv2 in mid
@@ -221,6 +232,13 @@ def _check_plan(plan):
         last = max(_tile_index(plan, conv, r)
                    for r in range(_m_real(plan, conv)))
         assert base + (last + 2 * pitch + 2 + 1) * cp * 2 <= end, conv
+
+
+def _table_tile(plan):
+    """The (TH, TW, NB, KS) a plan was made from: a cluster plan slabs 64
+    columns whatever its tile's KS, so that one is the table's."""
+    ks = fb.tile_for(plan.c)[3] if plan.cluster > 1 else plan.ks
+    return plan.th, plan.tw, plan.nb, ks
 
 
 def _tile_index(plan, conv, r):
@@ -249,7 +267,7 @@ def _check_rows(plan, conv):
 @pytest.mark.parametrize("c", W48_WIDTHS)
 def test_plan_for_w48_width_fits_shared_memory(c):
     plan = fb.plan_for(c)
-    assert (plan.th, plan.tw, plan.nb, plan.ks) == tuple(fb.tile_for(c))
+    assert _table_tile(plan) == tuple(fb.tile_for(c))
     _check_plan(plan)
 
 
@@ -288,7 +306,7 @@ def test_plan_rejects_tile_past_shared_memory():
 
 
 def _variants(prelude):
-    """The (MT, NT, KS) list of a library prelude's EGONET_VARIANTS."""
+    """The (MT, NT, KS, TMA) list of a library prelude's EGONET_VARIANTS."""
     assert prelude.startswith("#define EGONET_VARIANTS ")
     body = prelude[len("#define EGONET_VARIANTS "):].strip()
     return [tuple(int(v) for v in item.split(","))
@@ -300,13 +318,13 @@ def test_library_holds_the_variant_of_every_default_plan():
     once, and no other; the kernel's dispatch is that list."""
     name, source, prelude = fb.library()
     assert (name, source) == ("fused_basic_block", "fused_basic_block")
-    needed = {(p.mt, p.nt, p.ks) for p in (
+    needed = {(p.mt, p.nt, p.ks, int(p.cluster > 1)) for p in (
         fb.plan_for(c) for c in range(16, 513, 16) if fb.tile_fits(c, None))}
     got = _variants(prelude)
     assert got == sorted(needed)
     for c in W48_WIDTHS:
         p = fb.plan_for(c)
-        assert (p.mt, p.nt, p.ks) in got
+        assert fb.variant(p) in got
     with open(os.path.join(_build.CSRC, "fused_basic_block.cu")) as f:
         src = f.read()
     # no variant is written in the source: it takes the prelude's list
@@ -317,7 +335,7 @@ def test_sweep_library_is_named_by_its_variants():
     plans = [fb.plan_for(48, (8, 16, 1, 48)), fb.plan_for(96, (8, 32, 1, 96))]
     name, source, prelude = fb.library(plans)
     assert source == "fused_basic_block" and name != "fused_basic_block"
-    assert _variants(prelude) == [(2, 3, 48), (6, 3, 96)]
+    assert _variants(prelude) == [(2, 3, 48, 0), (6, 3, 96, 0)]
     assert fb.library(plans[::-1]) == (name, source, prelude)
     assert fb.library(plans[:1])[0] != name
 
@@ -358,9 +376,13 @@ def _kernel_case(C, H, W, B):
     b1 = torch.randn(C, device=dev, generator=g) * 0.1
     b2 = torch.randn(C, device=dev, generator=g) * 0.1
     before = fb.fused_basic_block.launches
+    multicast = fb.fused_basic_block.multicast_launches
     y = fb.fused_basic_block(x, w1, b1, w2, b2)
     torch.cuda.synchronize()
     assert fb.fused_basic_block.launches == before + 1
+    # a launch as clusters counts there too, and only then
+    assert fb.fused_basic_block.multicast_launches == multicast + (
+        fb.plan_for(C).cluster > 1)
     ref = fb.fused_basic_block_reference(x, w1, b1, w2, b2)
     torch.testing.assert_close(y.float(), ref.float(), atol=5e-2, rtol=2e-2)
 
@@ -377,3 +399,181 @@ def test_kernel_matches_plain_version_odd_shapes(C, H, W, B):
     """A map no tile divides in either direction, and one image at
     C=384."""
     _kernel_case(C, H, W, B)
+
+
+# ------------------------------------------------- clusters sharing weights
+
+# (C, map size, blocks a cluster by the rule) at the W48 and W32 widths
+HRNET_CLUSTERS = [(384, 8, 2), (192, 16, 2), (96, 32, 1), (48, 64, 1),
+                  (256, 6, 2), (128, 12, 2), (64, 24, 2), (32, 48, 1)]
+CLUSTERED = [(c, h) for c, h, k in HRNET_CLUSTERS if k > 1]
+
+
+@pytest.mark.parametrize("c,h,k", HRNET_CLUSTERS)
+def test_cluster_rule_at_the_hrnet_widths(c, h, k):
+    """k from (M1 + M2) / 2, the operations per weight byte a block
+    streams: the rule's cluster below the threshold, 1 at or above it."""
+    plan = fb.plan_for(c)
+    th, tw, nb = fb.tile_for(c)[:3]
+    f = fb.flop_per_weight_byte(th, tw, nb)
+    assert f == (nb * (th + 2) * (tw + 2) + nb * th * tw) / 2
+    assert plan.cluster == fb.cluster_for(c, th, tw, nb) == k
+    assert (f < fb._MULTICAST_BELOW) == (k > 1)
+    assert k in (1, fb._CLUSTER)
+    _check_plan(plan)
+
+
+def test_cluster_needs_whole_slab_rows_and_shared_memory():
+    """A width whose 9C columns take no 64-column slab, or a forced
+    cluster no TMA box serves, has no cluster plan; where a cluster plan
+    does not fit, the rule falls back to the unclustered one."""
+    assert fb.cluster_for(48, 4, 4, 1) == 1          # 26 ops/byte, C % 64
+    with pytest.raises(ValueError):
+        fb.plan_for(48, None, 2)
+    with pytest.raises(ValueError):
+        fb.plan_for(384, None, 3)
+    assert fb.plan_for(192, None, 1).cluster == 1
+    assert fb.plan_for(192, None, 1).ks == fb.tile_for(192)[3]
+    # C=320 at the fallback tile: 82 ops/byte, but two swizzled slabs do
+    # not fit beside its x and mid tiles
+    assert fb.cluster_for(320, 8, 8, 1) == fb._CLUSTER
+    assert not fb.tile_fits(320, None, fb._CLUSTER)
+    assert fb.plan_for(320).cluster == 1
+
+
+def _kernel_struct_fields(name):
+    """The field names of ``struct <name>`` in csrc/fused_basic_block.cu."""
+    import re
+    with open(os.path.join(_build.CSRC, "fused_basic_block.cu")) as f:
+        src = f.read()
+    body = src[src.index(f"struct {name} {{"):]
+    body = body[:body.index("};")]
+    return [n for decl in re.findall(r"^\s*int ([^;]+);", body, re.M)
+            for n in (v.strip() for v in decl.split(","))]
+
+
+def test_plan_fields_match_the_kernel_struct():
+    """The plan's fields, in the order the CUDA operator's TiledPlan takes
+    them (its prelude's X-macro), are the kernel's Plan struct's."""
+    fields = _kernel_struct_fields("Plan")
+    assert fields == fb._PLAN_FIELDS
+    assert fields[-1] == "cluster"
+    prelude = _build._plans_prelude()
+    line = next(ln for ln in prelude.splitlines()
+                if ln.startswith("#define EGONET_TILED_FIELDS(X) "))
+    assert line.split(") ", 1)[1].split() == [f"X({f})" for f in fields]
+
+
+def test_library_holds_each_cluster_variant():
+    """Each clustered width's variant is in the default library with its
+    TMA flag set, and each unclustered width's without it."""
+    got = _variants(fb.library()[2])
+    for c, _, k in HRNET_CLUSTERS:
+        mt, nt, ks, tma = fb.variant(fb.plan_for(c))
+        assert (mt, nt, ks, tma) in got
+        assert tma == int(k > 1) and (ks == 64) == (k > 1)
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 16, 32, 512])
+def test_padded_grid_is_a_multiple_of_the_cluster(n):
+    """The grid's image groups round up to a multiple of the cluster, by
+    fewer than one cluster; without one they are the batch's."""
+    for c, h, k in HRNET_CLUSTERS:
+        plan = fb.plan_for(c)
+        gx, gy = fb.grid_for(plan, n, h, h)
+        assert gx == -(-h // plan.th) * -(-h // plan.tw)
+        assert gy % k == 0 and gy * plan.nb >= n
+        assert gy - k < -(-n // plan.nb)
+        if k == 1:
+            assert gy == -(-n // plan.nb)
+
+
+def test_swizzled_b_fragments_read_their_elements():
+    """The B fragments of a cluster plan, at conv_gemm's swizzled offsets
+    (b_lane + b_k[kk]), read exactly the weight elements they stand for in
+    a slab TMA wrote with the 128-byte swizzle (element (n, k) of a [C][64]
+    slab at byte 128 n + 16 ((k / 8) ^ (n % 8)) + 2 (k % 8)), and the 8
+    rows of every ldmatrix phase fall on distinct 16-byte bank groups."""
+    def swizzled(n, k):
+        return 128 * n + 16 * ((k // 8) ^ (n % 8)) + 2 * (k % 8)
+
+    for c in (384, 192, 256, 128, 64):
+        plan = fb.plan_for(c)
+        assert plan.cluster > 1 and plan.ks == 64
+        n_tiles = c // 16
+        for wn_i in range(plan.wn):
+            for q in range(plan.nt):
+                nt = min(wn_i * plan.nt + q, n_tiles - 1)
+                for kk in range(plan.ks // 16):
+                    groups = {}
+                    for lane in range(32):
+                        b_lane = ((lane % 8 + 8 * (lane // 16)) * 128
+                                  + (((lane // 8) % 2) ^ (lane % 2)) * 16)
+                        b_k = (kk ^ ((lane % 8) // 2)) * 32
+                        addr = b_lane + b_k + nt * 16 * 128
+                        # matrix lane / 8: output channels 8 (lane / 16)
+                        # + 0..7, K half (lane / 8) % 2 of step kk
+                        n = nt * 16 + lane % 8 + 8 * (lane // 16)
+                        k0 = 16 * kk + 8 * ((lane // 8) % 2)
+                        assert addr == swizzled(n, k0)
+                        assert addr + 14 == swizzled(n, k0 + 7)
+                        groups.setdefault(lane // 8, []).append(
+                            (addr // 16) % 8)
+                    for banks in groups.values():
+                        assert sorted(banks) == list(range(8))
+
+
+def test_cluster_plans_fill_the_shared_memory_they_may_use():
+    """A cluster plan takes as many slabs as fit, up to 8: in half the
+    SM's shared memory where the variant runs two blocks an SM (few
+    accumulators) and two slabs fit so, else in the block's limit."""
+    for c, _ in CLUSTERED:
+        plan = fb.plan_for(c)
+        two = plan.mt * plan.nt <= 6 and (
+            plan.slab_off + 2 * plan.slab_bytes + fb._BAR_BYTES
+            <= fb._SM_SMEM // 2 - fb._BLOCK_RESERVED)
+        limit = fb._SM_SMEM // 2 - fb._BLOCK_RESERVED if two else SMEM_LIMIT
+        assert plan.smem <= limit
+        assert (plan.stages == fb._TMA_STAGES
+                or plan.smem + plan.slab_bytes > limit)
+    assert [fb.plan_for(c).stages for c in (384, 192, 256, 128, 64)] == [
+        3, 5, 2, 4, 8]
+
+
+def test_cluster_shares_are_whole_swizzle_atoms():
+    """Block r of a cluster loads rows [r C / k, (r + 1) C / k) of each
+    slab: every share starts on a 1024-byte boundary (the swizzle's atom
+    of 8 rows), and the shares tile the slab."""
+    for c, _ in CLUSTERED:
+        plan = fb.plan_for(c)
+        rows = c // plan.cluster
+        starts = [plan.slab_off + r * rows * 128
+                  for r in range(plan.cluster)]
+        assert all(a % 1024 == 0 for a in starts)
+        assert rows * 128 * plan.cluster == plan.slab_bytes
+        assert 8 <= rows <= 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 5, 16, 32])
+@pytest.mark.parametrize("C,H", CLUSTERED)
+def test_cluster_kernel_matches_plain_version(C, H, B):
+    """Every clustered width against the plain version, at batches that
+    are and are not multiples of the cluster."""
+    _kernel_case(C, H, H, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,H", [(384, 8), (256, 6)])
+def test_cluster_kernel_matches_plain_version_at_the_main_bucket(C, H):
+    """The main path's bucket, 512 crops, at the two widths with the most
+    clusters a launch."""
+    _kernel_case(C, H, H, 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,H", [(48, 64), (96, 32), (32, 48)])
+def test_unclustered_widths_leave_the_multicast_count(C, H):
+    """The widths the rule keeps unclustered launch without a cluster:
+    ``multicast_launches`` stays where it was."""
+    _kernel_case(C, H, H, 4)

@@ -21,6 +21,7 @@ from egonet_tpu.ops import pallas_block as pb
 from egonet_tpu_torch.ops import fused_block as fb
 from egonet_tpu_torch.ops import fused_block_stencil as st
 from tests.test_torch_fused_block import _check_plan, _check_rows
+from tests.test_torch_fused_block import _table_tile
 from tests.test_torch_fused_block import _random_block
 
 PED_SHAPES = ((32, 48), (64, 24), (128, 12), (256, 6))
@@ -52,7 +53,7 @@ def test_tiled_plan_fits_covers_and_wastes_little(C, H):
     layout, every GEMM row once, and tiles that divide the map (no
     padding positions computed)."""
     plan = fb.plan_for(C)
-    assert (plan.th, plan.tw, plan.nb, plan.ks) == tuple(fb.tile_for(C))
+    assert _table_tile(plan) == tuple(fb.tile_for(C))
     assert C in fb._TILES
     _check_plan(plan)
     for conv in (1, 2):
