@@ -81,7 +81,8 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    stencil (bars below and in the phase's line).
 7b. Native phase: PoseNetTPU at its defaults (the root bench's native
    family, ``config.native_demo_config()``), full width, bf16, on the
-   slice's 24 crops: no fused-block launch, median |d ry| against the
+   slice's 24 crops: no fused-block launch, 62 bn_act launches a forward
+   (one a batch norm), median |d ry| against the
    same model in fp32 under 0.5 deg, crops/s, device ms per span from one
    trace, and the fp32 / bf16 harness against the JAX package's outputs
    in ``tests/data/torch_native_fixture.npz`` (kpts 0.1 px, angles 2e-3
@@ -106,7 +107,8 @@ NVIDIA GPU:  python3 chip_smoke.py   (one card; builds the kernels first).
    with ``act_quant: int8`` and with ``fuse_merge: true`` against the
    plain W48 (|d ry|, crops/s); the W48 'heatmap' (``pixel_shuffle``) and
    'angleregression' head forwards; AngleTrainer steps at full W48 width
-   in bf16 (a loss that falls); one PoseResNet-50 forward.
+   in bf16 (a loss that falls); one PoseResNet-50 forward (finite maps,
+   56 bn_act launches: one a batch norm).
 9. Bench phase (``tools/bench.py``): the device program at batch 32, 128
    and 384 (median of 5 windows, with min and max), FLOPs per crop, MFU,
    for the W48 and the native family (``tpu_native_*``,
@@ -1014,12 +1016,18 @@ def rigid_phase(torch, np, card):
 
 # egonet::bn_act: the CUDA kernel against the CPU kernel at these NHWC
 # shapes (layer1, the stem's width, head2's C = 66, W48's stage 4, an odd
-# width), then at layer1's shape of a full bucket (the grid strides over it
-# several times) against the CPU kernel and the unfused ops, and timed;
-# launches a forward of W48 or W32 in bf16 inference (the batch norms
-# outside the fused blocks)
+# width, then BN_ACT_RESNET), then at layer1's shape of a full bucket (the
+# grid strides over it several times) against the CPU kernel and the
+# unfused ops, and timed; launches a forward of W48 or W32 in bf16
+# inference (the batch norms outside the fused blocks)
+# PoseResNet-152's widths no HRNet layer gives the kernel, each also held
+# to the unfused ops: layer4's, layer3's and layer2's block outputs (C =
+# 2048, 1024, 512: one, two and four pixels a block), the stem at 128x128,
+# a transposed conv's output (C = 256 at 32x32)
+BN_ACT_RESNET = ((4, 8, 8, 2048), (4, 16, 16, 1024), (4, 32, 32, 512),
+                 (2, 128, 128, 64), (3, 32, 32, 256))
 BN_ACT_SHAPES = ((8, 64, 64, 256), (3, 64, 64, 64), (5, 8, 8, 66),
-                 (7, 8, 8, 384), (2, 3, 5, 35))
+                 (7, 8, 8, 384), (2, 3, 5, 35)) + BN_ACT_RESNET
 BN_ACT_TIMED, BN_ACT_TIMED_CALLS = (512, 64, 64, 256), 50
 # fuse_merge's layer1 group at a full bucket: conv1's 64 channels beside
 # the downsample's 256, the downsample's view read in place (and, as a
@@ -1052,12 +1060,13 @@ def bn_act_phase(torch, np, card):
     """The batch-norm epilogue's kernel (``egonet::bn_act``): at each shape
     of BN_ACT_SHAPES, with and without a residual and a relu, the CUDA
     kernel bit for bit the CPU kernel (csrc/bn_act.cuh's routine), one
-    launch a call, and once with x misaligned (the 2-byte path).  At
-    BN_ACT_TIMED, with and without a residual: bit for bit the CPU kernel,
-    on the whole tensor and on a BN_ACT_SLICE channel view read in place,
-    and within :func:`_bn_act_bound` of the unfused ops it replaced (cast
-    to fp32, batch norm, cast back, add, relu) with at most
-    BN_ACT_MAX_DIFFER of the elements differing; then, after as many
+    launch a call, and once with x misaligned (the 2-byte path).  At each
+    shape of BN_ACT_RESNET and at BN_ACT_TIMED, with and without a
+    residual: bit for bit the CPU kernel and within :func:`_bn_act_bound`
+    of the unfused ops it replaced (cast to fp32, batch norm, cast back,
+    add, relu) with at most BN_ACT_MAX_DIFFER of the elements differing;
+    at BN_ACT_TIMED also on a BN_ACT_SLICE channel view read in place,
+    bit for bit the CPU kernel; then, after as many
     untimed, BN_ACT_TIMED_CALLS back-to-back calls timed with CUDA events,
     its TB/s of bytes read and
     written against HBM_TBPS, beside the unfused ops; ptxas's registers and
@@ -1104,33 +1113,59 @@ def bn_act_phase(torch, np, card):
     assert same_as_cpu(got, x, scale, shift, r, True)
     checks += 1
 
-    # the full bucket: gamma, beta, mean, var of a batch norm and its affine
-    x, r, gamma, beta = operands(BN_ACT_TIMED, "cuda")
-    n, h, w, c = BN_ACT_TIMED
-    mean = torch.from_numpy(rng.randn(c).astype(np.float32)).cuda()
-    var = torch.from_numpy(rng.uniform(0.5, 2, c).astype(np.float32)).cuda()
-    scale, shift = bn_affine_tensors(gamma, beta, mean, var, 1e-5)
-    nchw, rnchw = x.permute(0, 3, 1, 2), r.permute(0, 3, 1, 2)
+    def bn_operands(shape):
+        """x, residual, a batch norm's (gamma, beta, mean, var) and its
+        (scale, shift), on the card."""
+        x, r, gamma, beta = operands(shape, "cuda")
+        c = shape[-1]
+        mean = torch.from_numpy(rng.randn(c).astype(np.float32)).cuda()
+        var = torch.from_numpy(
+            rng.uniform(0.5, 2, c).astype(np.float32)).cuda()
+        stats = (gamma, beta, mean, var)
+        return x, r, stats, bn_affine_tensors(*stats, 1e-5)
 
-    def unfused(residual):
-        t = F.batch_norm(nchw.float(), mean, var, gamma, beta, False, 0.0,
-                         1e-5).to(torch.bfloat16)
-        return t, torch.relu(t + rnchw if residual else t)
+    def unfused(x, r, stats, residual):
+        gamma, beta, mean, var = stats
+        t = F.batch_norm(x.permute(0, 3, 1, 2).float(), mean, var, gamma,
+                         beta, False, 0.0, 1e-5).to(torch.bfloat16)
+        return t, torch.relu(t + r.permute(0, 3, 1, 2) if residual else t)
 
-    full = {}
-    for residual in (False, True):
+    def against_unfused(x, r, stats, scale, shift, residual):
+        """bn_act with a relu bit for bit the CPU kernel and within
+        _bn_act_bound of the unfused ops -> the share of its elements
+        differing from theirs."""
         res = r if residual else None
         got = bn_act(x, scale, shift, res, True)
-        assert same_as_cpu(got, x, scale, shift, res, True), residual
-        t, want = (v.permute(0, 2, 3, 1) for v in unfused(residual))
+        assert same_as_cpu(got, x, scale, shift, res, True), (
+            tuple(x.shape), residual)
+        t, want = (v.permute(0, 2, 3, 1)
+                   for v in unfused(x, r, stats, residual))
         bound = _bn_act_bound(torch, x, scale, shift, t, res)
         within = bool(((got.float() - want.float()).abs() <= bound).all())
         differ = float((got != want).float().mean())
-        assert within and differ <= BN_ACT_MAX_DIFFER, (residual, differ)
+        assert within and differ <= BN_ACT_MAX_DIFFER, (
+            tuple(x.shape), residual, differ)
+        return differ
+
+    resnet = {}
+    for shape in BN_ACT_RESNET:
+        x, r, stats, (scale, shift) = bn_operands(shape)
+        resnet["x".join(map(str, shape))] = {
+            "residual_relu" if residual else "relu":
+                against_unfused(x, r, stats, scale, shift, residual)
+            for residual in (False, True)}
+        checks += 2
+
+    # the full bucket
+    x, r, stats, (scale, shift) = bn_operands(BN_ACT_TIMED)
+    n, h, w, c = BN_ACT_TIMED
+    full = {}
+    for residual in (False, True):
         full["residual_relu" if residual else "relu"] = {
-            "share_differing_from_unfused": differ}
-        del got, t, want, bound
+            "share_differing_from_unfused": against_unfused(
+                x, r, stats, scale, shift, residual)}
         checks += 1
+    torch.cuda.empty_cache()
     before, width = BN_ACT_SLICE
     wide = torch.randn(n, h, w, before + width, device="cuda",
                        generator=torch.Generator(device="cuda").manual_seed(
@@ -1166,8 +1201,11 @@ def bn_act_phase(torch, np, card):
            "relu": timing(lambda: bn_act(x, scale, shift, None, True), 2),
            "residual_relu": timing(lambda: bn_act(x, scale, shift, r, True),
                                    3),
-           "unfused_relu_ms": timing(lambda: unfused(False), 2)["ms"],
-           "unfused_residual_relu_ms": timing(lambda: unfused(True), 3)["ms"]}
+           "unfused_relu_ms": timing(
+               lambda: unfused(x, r, stats, False), 2)["ms"],
+           "unfused_residual_relu_ms": timing(
+               lambda: unfused(x, r, stats, True), 3)["ms"],
+           "resnet_share_differing_from_unfused": resnet}
     log = _build.BUILD_INFO.get("bn_act", {}).get("log", "")
     row["ptxas"] = [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -2003,11 +2041,16 @@ def _trace_spans(torch, model, annot, n=1):
                             s["by_kernel"][:5]]}
 
 
+# PoseNetTPU's batch norms at its defaults, each one bn_act launch a
+# forward in bf16 inference
+NATIVE_BN_ACT_PER_FORWARD = 62
+
+
 def native_phase(torch, np, fb, st, here, annot):
     """PoseNetTPU at its defaults (the root bench's native family: the demo
     config with ``heatmapModel.name: tpu_native`` and ``extra: {}``), full
     width, bf16, on the slice's 24 crops (bucket 32): no fused-block
-    launch, bf16 against the same model in fp32 (median |d ry| < 0.5 deg),
+    launch, NATIVE_BN_ACT_PER_FORWARD bn_act launches, bf16 against the same model in fp32 (median |d ry| < 0.5 deg),
     crops/s, device ms per span from one trace; then the fp32 and bf16
     harness against tests/data/torch_native_fixture.npz."""
     from egonet_tpu_torch import precision
@@ -2019,7 +2062,7 @@ def native_phase(torch, np, fb, st, here, annot):
         records, launches, first_s = _drive(torch, model, annot, fb, st,
                                             out_dir)
     assert launches == {"tiled": 0, "stencil": 0, "rigid": 1,
-                        "bn_act": 0}, launches
+                        "bn_act": NATIVE_BN_ACT_PER_FORWARD}, launches
     ry = _ry(np, records)
     assert np.isfinite(ry).all()
     model32 = _slice_model(torch, native_demo_config(), torch.float32)
@@ -2195,7 +2238,7 @@ def options_phase(torch, np, fb, st, annot, ry_w48, root, card):
     against the plain W48 (|d ry|, crops/s); the 'heatmap' head (with
     ``pixel_shuffle``) and the 'angleregression' head forwards at W48,
     bf16; AngleTrainer steps at full W48 width; one PoseResNet-50 forward
-    (shape and finiteness)."""
+    (:func:`pose_resnet_forward`: shape, finiteness, bn_act launches)."""
     from egonet_tpu_torch.config import demo_config
     from egonet_tpu_torch.models.factory import build_heatmap_model
     from egonet_tpu_torch.models.init import numpy_init
@@ -2248,20 +2291,42 @@ def options_phase(torch, np, fb, st, annot, ry_w48, root, card):
         assert row[name]["launches_per_forward"] == 104, row[name]
         del net
     row["angle_trainer_w48_bf16"] = _angle_steps(torch, np, root)
+    row["pose_resnet50"] = pose_resnet_forward(torch, x)
+    row["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"options": row}), flush=True)
+    return row
+
+
+# PoseResNet's batch norms a bf16 inference forward, each one bn_act launch
+# (the stem, three a bottleneck, the shortcuts, one after each deconv)
+POSE_RESNET_BN_ACT = {50: 56, 152: 158}
+
+
+def pose_resnet_forward(torch, x, num_layers=50):
+    """PoseResNet (``num_layers`` deep, the published head) in bf16 on the
+    card, eval, on crops ``x`` [N, 3, 256, 256]: [N, 33, 64, 64] finite
+    heatmaps, and POSE_RESNET_BN_ACT bn_act launches a forward."""
+    from egonet_tpu_torch.config import demo_config
+    from egonet_tpu_torch.models.factory import build_heatmap_model
+    from egonet_tpu_torch.models.init import numpy_init
+    from egonet_tpu_torch.ops.bn_act import bn_act
     cfgs = demo_config()
-    cfgs["heatmapModel"].update(name="resnet", num_layers=50, extra={})
+    cfgs["heatmapModel"].update(name="resnet", num_layers=num_layers,
+                                extra={})
     net = numpy_init(build_heatmap_model(cfgs, torch.bfloat16), 0)
     net = net.to("cuda", memory_format=torch.channels_last).eval()
     with torch.inference_mode():
+        net(x)
+        bn_act.launches = 0
         out = net(x)
-    row["pose_resnet50"] = {"shape": list(out.shape),
-                            "finite": bool(torch.isfinite(out).all())}
-    del net
+        torch.cuda.synchronize()
+    row = {"shape": list(out.shape), "finite": bool(torch.isfinite(out).all()),
+           "bn_act_launches_per_forward": bn_act.launches}
+    del net, out
     torch.cuda.empty_cache()
-    row["seconds"] = time.perf_counter() - t0
-    print(json.dumps({"options": row}), flush=True)
-    assert tuple(out.shape) == (N_FRAMES * N_BOXES, 33, 64, 64)
-    assert row["pose_resnet50"]["finite"]
+    assert row["shape"] == [x.shape[0], 33, 64, 64] and row["finite"], row
+    assert row["bn_act_launches_per_forward"] == \
+        POSE_RESNET_BN_ACT[num_layers], row
     return row
 
 

@@ -12,6 +12,10 @@ full canvases); the device runs
                                      branch blocks through the fused
                                      Hopper kernel in bf16 eval, or
                                      PoseNetTPU, cuDNN convs)
+      or PoseResNet's 'heatmap' head -> maps [N, 33, Hm, Wm], then the
+      soft-argmax readout to local coords (E[column] / Wm, E[row] / Hm)
+                                     (models/resnet.py; ops/keypoints.py;
+                                     no other family's 'heatmap' head)
     inverse affine to screen coords                  (batched fp32 matmul)
     LS-normalize -> FC lifter -> un-normalize        (models/fc_lifter.py)
     template fit + rigid solve + euler               (ops/rigid_solve.py:
@@ -61,7 +65,8 @@ from egonet_tpu_torch.io import weights
 from egonet_tpu_torch.models.factory import build_heatmap_model
 from egonet_tpu_torch.models.fc_lifter import build_fc_model
 from egonet_tpu_torch.models.init import numpy_init
-from egonet_tpu_torch.ops import affine, packing
+from egonet_tpu_torch.models.resnet import PoseResNet
+from egonet_tpu_torch.ops import affine, keypoints, packing
 from egonet_tpu_torch.ops.rigid_solve import rigid_solve
 from egonet_tpu_torch.parallel import mesh as pmesh
 from egonet_tpu_torch.utils.profiling import span
@@ -160,10 +165,16 @@ class EgoNet:
             raise ValueError(f"roi_packing must be auto/never/always, "
                              f"got {self.pack_mode!r}")
         hrnet = build_heatmap_model(cfgs, dtype=self.dtype)
-        if getattr(hrnet, "head_type", None) != "coordinates":
+        head = getattr(hrnet, "head_type", None)
+        # PoseResNet's heatmaps are read out by a soft-argmax (``_tail``);
+        # no other family's 'heatmap' head is held to a reference
+        self.readout = isinstance(hrnet, PoseResNet)
+        if head != ("heatmap" if self.readout else "coordinates"):
             raise ValueError("the facade reads keypoints from a "
-                             "'coordinates' head; heatmapModel "
-                             f"{hm.get('name', 'hrnet')!r} has none")
+                             "'coordinates' head, or from PoseResNet's "
+                             "'heatmap' head; heatmapModel "
+                             f"{hm.get('name', 'hrnet')!r} has the head "
+                             f"{head!r}")
         lifter = build_fc_model(cfgs, dtype=self.dtype)
         with span("init_weights"):
             self.hrnet = numpy_init(hrnet, rng_seed).eval()
@@ -315,7 +326,12 @@ class EgoNet:
                 self.cfgs, patches, inv_mats, img_wh, (height, width),
                 stats=replica.norm)
         with span("backbone"):
-            _maps, coords = hrnet(crops.permute(0, 3, 1, 2))
+            out = hrnet(crops.permute(0, 3, 1, 2))
+        if self.readout:
+            with span("readout"):
+                coords = keypoints.soft_argmax_coords(out, unit=True)
+        else:
+            _maps, coords = out
         with span("inverse_affine"):
             local = coords * replica.scale
             screen = affine.batched_affine_transform(local, inv_mats)

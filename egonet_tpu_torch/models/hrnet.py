@@ -55,7 +55,6 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from egonet_tpu_torch.io.weights import bn_affine_tensors
 from egonet_tpu_torch.models.layers import (BN_MOMENTUM, CachedInference,
                                            Ops, batch_norm, pixel_shuffle)
 from egonet_tpu_torch.models.layers import bn as _bn
@@ -454,27 +453,22 @@ class PoseHighResolutionNet(CachedInference):
         return super().prepare_inference()
 
     def _build_cache(self) -> dict:
-        cache = super()._build_cache()
-        cache["folded"] = {}
-        cache["affine"] = {}
-        cache["stencil"] = fused_block_stencil.stencil_enabled(self.stencil)
+        stencil = fused_block_stencil.stencil_enabled(self.stencil)
+        folded = {}
         if self.dtype == torch.bfloat16:
-            for blk in self._fusable_blocks(cache["stencil"]):
-                cache["folded"][blk] = (
+            for blk in self._fusable_blocks(stencil):
+                folded[blk] = (
                     *fused_block.fold_conv_bn(blk.conv1.weight, blk.bn1),
                     *fused_block.fold_conv_bn(blk.conv2.weight, blk.bn2))
-            folded = {bn for blk in cache["folded"]
-                      for bn in (blk.bn1, blk.bn2)}
-            for m in self.modules():
-                if isinstance(m, nn.BatchNorm2d) and m not in folded:
-                    cache["affine"][m] = bn_affine_tensors(
-                        m.weight, m.bias, m.running_mean, m.running_var,
-                        m.eps)
-            if self.fuse_merge:
-                for group in self._merge_groups():
-                    cache["cast"][group] = torch.cat(
-                        [cache["cast"][m] for m in group]).contiguous(
-                            memory_format=torch.channels_last)
+        cache = super()._build_cache(
+            folded={bn for blk in folded for bn in (blk.bn1, blk.bn2)})
+        cache["folded"] = folded
+        cache["stencil"] = stencil
+        if self.dtype == torch.bfloat16 and self.fuse_merge:
+            for group in self._merge_groups():
+                cache["cast"][group] = torch.cat(
+                    [cache["cast"][m] for m in group]).contiguous(
+                        memory_format=torch.channels_last)
         return cache
 
     # ---------------- forward ----------------

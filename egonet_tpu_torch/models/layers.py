@@ -10,8 +10,9 @@ weights where a model has them, with the int8 activation transport
 (``act_quant``) of the JAX package; ``CachedInference`` is the base of the
 heatmap models, which builds those weights and drops them whenever the
 parameters may move.  Where a model's table holds a batch norm's affine
-(the HRNet's, in bf16 inference), ``Ops.bn`` runs that batch norm with the
-residual add and relu after it as one pass (``ops/bn_act.py``).
+(in bf16 inference, the HRNet's and the PoseResNet's), ``Ops.bn`` runs that
+batch norm with the residual add and relu after it as one pass
+(``ops/bn_act.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from egonet_tpu_torch.io.weights import bn_affine_tensors
 from egonet_tpu_torch.ops import bn_act
 from egonet_tpu_torch.parallel import mesh
 
@@ -182,9 +184,11 @@ class Ops:
 
 class CachedInference(nn.Module):
     """Base of the heatmap models: ``prepare_inference`` pre-casts every
-    conv weight to the compute dtype once (bf16 models; channels_last),
-    and the table is dropped on ``load_state_dict`` (then rebuilt), when
-    the parameters move (``.to``) and when train mode is entered.
+    conv weight to the compute dtype once (bf16 models; channels_last) and
+    derives each batch norm's fp32 (scale, shift) for ``Ops.bn``'s
+    ``bn_act`` pass (bf16 models), and the
+    table is dropped on ``load_state_dict`` (then rebuilt), when the
+    parameters move (``.to``) and when train mode is entered.
     ``forward`` builds it on the first eval call.  Subclasses extend
     :meth:`_build_cache`."""
 
@@ -193,16 +197,27 @@ class CachedInference(nn.Module):
         self.dtype = dtype
         self._inference_cache = None
 
-    def _build_cache(self) -> dict:
-        cache = {"cast": {}}
+    def _build_cache(self, folded=frozenset()) -> dict:
+        """{'cast': {conv: bf16 channels_last weight}, 'affine': {batch
+        norm: (scale, shift)}} from the current parameters; the batch norms
+        in ``folded`` (folded into a fused kernel's weights) get no
+        entry."""
+        cache = {"cast": {}, "affine": {}}
         if self.dtype == torch.bfloat16:
             for m in self.modules():
                 if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                     cache["cast"][m] = m.weight.detach().to(
                         self.dtype, memory_format=torch.channels_last)
+                elif isinstance(m, nn.BatchNorm2d) and m not in folded:
+                    cache["affine"][m] = bn_affine_tensors(
+                        m.weight, m.bias, m.running_mean, m.running_var,
+                        m.eps)
         return cache
 
-    def prepare_inference(self):
+    def prepare_inference(self, stencil: str | None = None):
+        """Build the table now.  ``stencil`` is the HRNet's choice of
+        fused-block kernel (``hrnet.PoseHighResolutionNet``); a model
+        without fused blocks takes it and does nothing with it."""
         with torch.no_grad():
             self._inference_cache = self._build_cache()
         return self

@@ -10,6 +10,18 @@ padding): (4, 1, 0), (3, 1, 1), (2, 0, 0), which the JAX package expresses
 as a flax ``ConvTranspose`` with ``transpose_kernel`` and padding 'SAME'
 (k = 4, 2) or [(1, 2), (1, 2)] (k = 3).  Module names equal the
 reference's ``state_dict`` keys (``layer3.5.conv2``, ``deconv_layers.3``).
+
+Its head is a 'heatmap' head (``head_type``): the facade reads keypoints
+from the maps with a soft-argmax (``models/egonet.py``, span ``readout``).
+Precision follows ``models/hrnet.py``: convs in the compute dtype, the
+trunk ``channels_last``; in bf16 inference every batch norm (158 in
+ResNet-152: the stem, three a bottleneck, the downsamples, one after each
+deconv) runs with the ReLU and residual add after it as one
+``ops/bn_act.py`` pass, its (scale, shift) derived by ``CachedInference``.
+The max-pool's and the deconvs' outputs are kept in NHWC storage, the only
+layout that pass takes.  ``act_quant: int8`` (an option of the port alone:
+the JAX model has none) quantizes each block's output and each deconv
+stage's ReLU output to uint8 codes and back (``layers.Ops.transport``).
 """
 
 from __future__ import annotations
@@ -36,11 +48,18 @@ class PoseResNet(CachedInference):
     """``forward(x)``: NCHW normalized crops -> heatmaps [N, K, H/4, W/4]
     (three deconvs), fp32 (fp64 for an fp64 model)."""
 
+    head_type = "heatmap"
+
     def __init__(self, num_layers=50, num_joints=33, num_deconv_layers=3,
                  num_deconv_filters=(256, 256, 256),
                  num_deconv_kernels=(4, 4, 4), final_conv_kernel=1,
-                 deconv_with_bias=False, in_channels=3, dtype=torch.float32):
+                 deconv_with_bias=False, in_channels=3, dtype=torch.float32,
+                 act_quant="none", act_quant_scale=8.0):
         super().__init__(dtype)
+        if act_quant not in ("none", "int8"):
+            raise NotImplementedError(f"act_quant {act_quant!r}")
+        self.act_quant = act_quant
+        self.act_quant_scale = float(act_quant_scale)
         kind, layers = RESNET_SPEC[int(num_layers)]
         block, exp = (BasicBlock, 1) if kind == "basic" else (Bottleneck, 4)
         self.conv1 = conv(in_channels, 64, 7, 2)
@@ -71,16 +90,20 @@ class PoseResNet(CachedInference):
 
     def forward(self, x):
         cache = self.inference_cache()
-        ops = Ops(self.dtype, cache["cast"] if cache else None)
-        x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
-        x = torch.relu(ops.bn(self.bn1, ops.conv(self.conv1, x)))
-        x = F.max_pool2d(x, 3, 2, 1)
+        ops = Ops(self.dtype, cache["cast"] if cache else None,
+                  self.act_quant, self.act_quant_scale,
+                  cache["affine"] if cache else None)
+        nhwc = torch.channels_last
+        x = x.to(self.dtype).contiguous(memory_format=nhwc)
+        x = ops.bn(self.bn1, ops.conv(self.conv1, x), relu=True)
+        x = F.max_pool2d(x, 3, 2, 1).contiguous(memory_format=nhwc)
         for stage in range(1, 5):
             for blk in getattr(self, f"layer{stage}"):
                 x = blk.run(ops, x)
         d = self.deconv_layers
         for i in range(0, len(d), 3):
-            x = torch.relu(ops.bn(d[i + 1], ops.conv_transpose(d[i], x)))
+            y = ops.conv_transpose(d[i], x).contiguous(memory_format=nhwc)
+            x = ops.transport(ops.bn(d[i + 1], y, relu=True))
         return ops.conv(self.final_layer, x).to(ops.stat_dtype)
 
 
@@ -98,4 +121,6 @@ def build_pose_resnet(cfgs: dict, dtype=torch.float32) -> PoseResNet:
         deconv_with_bias=bool(extra.get("deconv_with_bias", False)),
         in_channels=5 if hm.get("add_xy", False) else 3,
         dtype=dtype,
+        act_quant=str(hm.get("act_quant", "none")),
+        act_quant_scale=float(hm.get("act_quant_scale", 8.0)),
     )

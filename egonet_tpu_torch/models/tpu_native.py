@@ -19,7 +19,10 @@ Module names equal the JAX model's (``stage1.2.pw1``, ``up0.conv``,
 Precision follows ``models/hrnet.py``: convs in the compute dtype, batch
 norm in fp32 (fp64 for an fp64 model), heads' dense layers in fp32.
 Every layer is a cuDNN convolution or a matmul: the JAX package computes
-this family with XLA, outside any Pallas kernel.
+this family with XLA, outside any Pallas kernel.  In bf16 inference each
+batch norm runs with the ReLU and residual add after it as one
+``ops/bn_act.py`` pass (62 at the defaults), its (scale, shift) derived
+by ``CachedInference``.
 """
 
 from __future__ import annotations
@@ -53,12 +56,12 @@ class MBConv(nn.Module):
                                           bn(width))
 
     def run(self, ops: Ops, x):
-        y = torch.relu(ops.bn(self.bn1, ops.conv(self.pw1, x)))
-        y = torch.relu(ops.bn(self.bn2, ops.conv(self.dw, y)))
-        y = ops.bn(self.bn3, ops.conv(self.pw2, y))
+        y = ops.bn(self.bn1, ops.conv(self.pw1, x), relu=True)
+        y = ops.bn(self.bn2, ops.conv(self.dw, y), relu=True)
         if self.shortcut is not None:
             x = ops.conv_bn(self.shortcut, x)
-        return ops.transport(torch.relu(x + y))
+        return ops.transport(ops.bn(self.bn3, ops.conv(self.pw2, y),
+                                    relu=True, residual=x))
 
 
 def _conv_bn_dict(cin, cout, k, stride, padding=0):
@@ -194,26 +197,27 @@ class PoseNetTPU(CachedInference):
         ``hrnet.PoseHighResolutionNet``)."""
         cache = self.inference_cache()
         ops = Ops(self.dtype, cache["cast"] if cache else None,
-                  self.act_quant, self.act_quant_scale)
+                  self.act_quant, self.act_quant_scale,
+                  cache["affine"] if cache else None)
         stem = self.stem
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         if self.grid_stride == 8:
-            x = torch.relu(ops.bn(stem["bn1"], ops.conv(stem["patch"], x)))
+            x = ops.bn(stem["bn1"], ops.conv(stem["patch"], x), relu=True)
         else:
-            x = torch.relu(ops.bn(stem["bn1"], ops.conv(stem["conv1"], x)))
-            x = torch.relu(ops.bn(stem["bn2"], ops.conv(stem["conv2"], x)))
+            x = ops.bn(stem["bn1"], ops.conv(stem["conv1"], x), relu=True)
+            x = ops.bn(stem["bn2"], ops.conv(stem["conv2"], x), relu=True)
         feats = []
         for s in range(len(self.depths)):
             if s > 0:
                 down = getattr(self, f"down{s}")
-                x = torch.relu(ops.bn(down["bn"], ops.conv(down["conv"], x)))
+                x = ops.bn(down["bn"], ops.conv(down["conv"], x), relu=True)
             for blk in getattr(self, f"stage{s}"):
                 x = blk.run(ops, x)
             feats.append(x)
         y = feats[-1]
         for s in range(len(feats) - 2, -1, -1):
             up = getattr(self, f"up{s}")
-            lat = torch.relu(ops.bn(up["bn"], ops.conv(up["conv"], y)))
+            lat = ops.bn(up["bn"], ops.conv(up["conv"], y), relu=True)
             y = getattr(self, f"fpn{s}").run(ops, feats[s]
                                              + pixel_shuffle(lat, 2))
         if self.head_type == "coordinates":

@@ -8,26 +8,39 @@ from __future__ import annotations
 import torch
 
 
-def _marginals(probs):
+def _marginals(probs, unit=False):
     """Expected (x, y) of [N, K, H, W] weights: the column / row marginals
-    times the pixel index."""
+    times the pixel index (over W and H with ``unit``)."""
     n, k, h, w = probs.shape
     xs = torch.arange(w, dtype=probs.dtype, device=probs.device)
     ys = torch.arange(h, dtype=probs.dtype, device=probs.device)
+    if unit:
+        xs, ys = xs / w, ys / h
     x = (probs.sum(dim=2) * xs).sum(dim=2)          # marginal over rows
     y = (probs.sum(dim=3) * ys).sum(dim=2)          # marginal over cols
     return torch.stack([x, y], dim=2)
 
 
+def soft_argmax_coords(heatmaps: torch.Tensor, unit: bool = False):
+    """Softmax-weighted expected (x, y) per heatmap, in heatmap pixels, or
+    with ``unit`` in the crop's unit square (E[column] / W, E[row] / H:
+    the facade's readout of a 'heatmap' head, which a crop of the input
+    size maps back to input px = heatmap index x input / heatmap size).
+
+    heatmaps: [N, K, H, W].  Returns coords [N, K, 2]."""
+    n, k, h, w = heatmaps.shape
+    probs = torch.softmax(heatmaps.reshape(n, k, h * w), dim=2)
+    return _marginals(probs.reshape(n, k, h, w), unit)
+
+
 def soft_argmax(heatmaps: torch.Tensor):
-    """Softmax-weighted expected (x, y) per heatmap.
+    """Softmax-weighted expected (x, y) per heatmap, in heatmap pixels,
+    and each heatmap's peak value.
 
     heatmaps: [N, K, H, W].  Returns (coords [N, K, 2], maxvals [N, K, 1])."""
-    n, k, h, w = heatmaps.shape
-    flat = heatmaps.reshape(n, k, h * w)
-    maxvals = flat.amax(dim=2, keepdim=True)
-    probs = torch.softmax(flat, dim=2).reshape(n, k, h, w)
-    return _marginals(probs), maxvals
+    n, k = heatmaps.shape[:2]
+    maxvals = heatmaps.reshape(n, k, -1).amax(dim=2, keepdim=True)
+    return soft_argmax_coords(heatmaps), maxvals
 
 
 def soft_argmax_sumnorm(heatmaps: torch.Tensor):

@@ -16,10 +16,12 @@ batch copied to the card inside each step (``h2d``).  The Chrome trace
 stays in ``--trace-dir`` for Perfetto.  Without ``--cfg`` it runs the
 shipped W48 config (``config.demo_config()``, or
 ``config.train_igrs_config()`` with ``--train``); without PyYAML call
-``main(cfgs=...)``.  Any heatmap family with a 'coordinates' head runs
-(the native and pedestrian configs too: a training config, which holds no
-lifter, profiles its keypoint model inside the demo's pipeline); its time
-is charged to the ``backbone`` span.
+``main(cfgs=...)``.  Any keypoint model the facade takes runs: a
+'coordinates' head (the native and pedestrian configs too: a training
+config, which holds no lifter, profiles its keypoint model inside the
+demo's pipeline), its time charged to the ``backbone`` span, or
+PoseResNet's 'heatmap' head, its maps charged to ``backbone`` and their
+soft-argmax to ``readout``.
 """
 
 from __future__ import annotations

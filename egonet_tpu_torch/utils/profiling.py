@@ -37,7 +37,10 @@ import torch
 #   normalize       crop normalization (mean / std)
 #   backbone        the keypoint model (HRNet, PoseNetTPU) with its
 #                   'coordinates' head (the HRNet's fused BasicBlock
-#                   kernels run here)
+#                   kernels run here), or a model with a 'heatmap' head
+#                   (PoseResNet) up to its maps
+#   readout         a 'heatmap' head's maps to coordinates (soft-argmax);
+#                   a 'coordinates' head opens no such span
 #   inverse_affine  local -> screen coordinates
 #   lifter          LS-normalize -> FC lifter -> un-normalize
 #   rigid           template fit, rigid solve and euler angles: one launch
@@ -45,7 +48,7 @@ import torch
 #   alpha           the observation angle
 #   d2h             the device->host copy of the flat output
 #   finalize        waiting for that copy and regrouping per image
-SPANS = ("host_prep", "h2d", "warp", "normalize", "backbone",
+SPANS = ("host_prep", "h2d", "warp", "normalize", "backbone", "readout",
          "inverse_affine", "lifter", "rigid", "alpha", "d2h", "finalize")
 
 # The IGR train step's stages, in order:

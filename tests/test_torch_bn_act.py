@@ -27,8 +27,11 @@ from tests import fixtures
 
 torch.set_num_threads(2)
 # every batch-norm width of W48 and W32 outside the fused blocks (66: the
-# coordinates head's 2 x 33 keypoints)
-WIDTHS = (32, 48, 64, 66, 96, 128, 192, 256, 384)
+# coordinates head's 2 x 33 keypoints), then those of PoseResNet-152 (512,
+# 1024, 2048) and of PoseNetTPU at its defaults (512 to 4096) that the
+# HRNet's do not hold
+WIDTHS = (32, 48, 64, 66, 96, 128, 192, 256, 384, 512, 1024, 1536, 2048,
+          4096)
 OP = "egonet.bn_act.default"
 
 
@@ -342,6 +345,28 @@ def test_shipped_models_call_it_96_times_a_forward(name, dtype, mode,
     assert calls.calls.get("egonet.fused_basic_block.default", 0) == fused
     if dtype == "bfloat16" and mode == "eval":
         assert len(net.inference_cache()["affine"]) == 96
+
+
+@pytest.mark.parametrize("dtype,mode,bn_acts", [
+    ("bfloat16", "eval", 62), ("bfloat16", "train", 0),
+    ("float32", "eval", 0)])
+def test_native_model_calls_it_once_a_batch_norm(dtype, mode, bn_acts):
+    """PoseNetTPU at its defaults (fake tensors: shapes and strides only):
+    each of its 62 batch norms is one call a bf16 inference forward, the
+    depthwise convs' and the pixel-shuffled FPN's outputs included (the
+    operator refuses any layout but NHWC storage); none in train mode or
+    in fp32."""
+    from egonet_tpu_torch.models.factory import build_heatmap_model
+    cfg = tcfg.native_demo_config()
+    w, h = cfg["heatmapModel"]["input_size"]
+    with FakeTensorMode():
+        net = build_heatmap_model(cfg, dtype=getattr(torch, dtype))
+        net.train(mode == "train")
+        x = torch.empty(3, 3, h, w)
+        with torch.no_grad(), _Calls() as calls:
+            net(x)
+    assert calls.calls.get(OP, 0) == bn_acts
+    assert sum(isinstance(m, nn.BatchNorm2d) for m in net.modules()) == 62
 
 
 @pytest.mark.parametrize("name", ["demo_config", "train_igrs_ped_config"])

@@ -1,11 +1,11 @@
 """The batch-norm epilogue's CUDA kernel (``egonet::bn_act``,
 csrc/bn_act.cu), marked ``cuda``: it skips without a card.  Bit for bit
 the CPU kernel (the same routine of csrc/bn_act.cuh) at layer1's shape
-(at a full bucket too), head2's C = 66, the stem's and stage 4's widths
-and an odd one, through each of its vector widths (16-byte, 4-byte and
-2-byte accesses) and on channel slices read in place, one launch a call;
-and 96 launches a dispatch of the W48 facade beside the 104 fused
-blocks.  No JAX here: the CPU kernel is the yardstick
+(at a full bucket too), head2's C = 66, the stem's and stage 4's widths,
+an odd one and PoseResNet-152's widths, through each of its vector widths
+(16-byte, 4-byte and 2-byte accesses) and on channel slices read in
+place, one launch a call; 96 launches a dispatch of the W48 facade beside
+the 104 fused blocks, 158 of PoseResNet-152's and 62 of PoseNetTPU's.  No JAX here: the CPU kernel is the yardstick
 (tests/test_torch_bn_act.py holds it to the unfused path)."""
 
 import numpy as np
@@ -16,9 +16,13 @@ from egonet_tpu_torch.ops import fused_block as fb
 from egonet_tpu_torch.ops.bn_act import bn_act
 
 # NHWC shapes: layer1 (64x64, C = 256), the stem's C = 64, head2's C = 66,
-# stage 4 of W48 (8x8, C = 384), an odd width
+# stage 4 of W48 (8x8, C = 384), an odd width; then PoseResNet-152's:
+# layer4's, layer3's and layer2's block outputs (C = 2048, 1024, 512: one,
+# two and four pixels a block), its stem at 128x128, a transposed conv's
+# output (C = 256 at 32x32)
 SHAPES = [(6, 64, 64, 256), (3, 64, 64, 64), (5, 8, 8, 66), (7, 8, 8, 384),
-          (2, 3, 5, 35)]
+          (2, 3, 5, 35), (4, 8, 8, 2048), (4, 16, 16, 1024),
+          (4, 32, 32, 512), (2, 128, 128, 64), (3, 32, 32, 256)]
 
 
 def _needs_card():
@@ -161,3 +165,50 @@ def test_fuse_merge_dispatch_is_96_launches_a_forward():
         ry.append(np.concatenate([r["euler_angles"][:, 1]
                                   for r in records.values()]))
     assert np.abs(np.degrees(ry[0] - ry[1])).max() < 1.0
+
+
+@pytest.mark.cuda
+def test_pose_resnet152_dispatch_is_158_launches_a_forward():
+    """The benchmark's PoseResNet-152 on the facade (256x256 crops, bf16):
+    each of its 158 batch norms is one launch a dispatch's forward, the
+    max pool's and the transposed convs' outputs included."""
+    _needs_card()
+    import json
+    import os
+
+    import chip_smoke
+    from benchmark import harness
+    with open(os.path.join(os.path.dirname(__file__), "..", "benchmark",
+                           "configs", "egonet_resnet152_car.json")) as f:
+        cfg = {k: v for k, v in json.load(f).items()
+               if k not in harness.HARNESS_KEYS}
+    model = chip_smoke._slice_model(torch, cfg)
+    annot = chip_smoke._frames(np, n_frames=2, n_boxes=5)
+    model.finalize(model.dispatch_annot_dict(annot))
+    bn_act.launches = 0
+    records = model.finalize(model.dispatch_annot_dict(annot))
+    assert bn_act.launches == 158
+    assert all(np.isfinite(r["euler_angles"]).all() for r in records.values())
+
+
+@pytest.mark.cuda
+def test_native_dispatch_is_62_launches_a_forward():
+    """PoseNetTPU at its defaults on the facade in bf16: each of its 62
+    batch norms is one launch a dispatch's forward (depthwise convs' and
+    the pixel-shuffled FPN's outputs included), and its angles stay
+    within half a degree (median) of the same model in fp32."""
+    _needs_card()
+    import chip_smoke
+    from egonet_tpu_torch.config import native_demo_config
+    annot = chip_smoke._frames(np, n_frames=2, n_boxes=5)
+    ry = []
+    for dtype in (torch.bfloat16, torch.float32):
+        model = chip_smoke._slice_model(torch, native_demo_config(), dtype)
+        model.finalize(model.dispatch_annot_dict(annot))
+        bn_act.launches = 0
+        records = model.finalize(model.dispatch_annot_dict(annot))
+        assert bn_act.launches == (62 if dtype == torch.bfloat16 else 0)
+        ry.append(np.concatenate([r["euler_angles"][:, 1]
+                                  for r in records.values()]))
+    d = np.abs(np.degrees(np.mod(ry[0] - ry[1] + np.pi, 2 * np.pi) - np.pi))
+    assert np.isfinite(d).all() and np.median(d) < 0.5

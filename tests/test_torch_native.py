@@ -223,14 +223,18 @@ def test_native_slice_bf16_within_drift_budget(shrunk_pair):
 
 
 def test_facade_refuses_a_model_without_coordinates():
-    """The facade needs a 'coordinates' head (as the JAX one does): a
-    heatmap-only model is refused when the facade is built."""
+    """The facade reads keypoints from a 'coordinates' head, or from
+    PoseResNet's 'heatmap' head through its soft-argmax readout: this
+    family's heatmap head (held to no reference) and its angle regression
+    head are refused when the facade is built, and the message names the
+    head."""
     from egonet_tpu_torch.models.egonet import EgoNet
     from tests import fixtures
-    cfg = fixtures.shrink_tpu_native(_jax_cfg())
-    cfg["heatmapModel"]["head_type"] = "heatmap"
-    with pytest.raises(ValueError, match="coordinates"):
-        EgoNet(cfg, device="cpu")
+    for head in ("heatmap", "angleregression"):
+        cfg = fixtures.shrink_tpu_native(_jax_cfg())
+        cfg["heatmapModel"]["head_type"] = head
+        with pytest.raises(ValueError, match=f"coordinates.*'{head}'"):
+            EgoNet(cfg, device="cpu")
 
 
 if __name__ == "__main__":
